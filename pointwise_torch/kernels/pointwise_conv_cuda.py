@@ -1,0 +1,345 @@
+"""Forward pointwise-conv kernel for Hopper: build, binding, plain version.
+
+``conv_fwd`` is the kernel's wrapper.  On a CUDA tensor it launches the
+hand-written kernel in ``csrc/pointwise_conv_fwd.cu`` (built with ``nvcc``
+for ``sm_90a`` at first use into ``kernels/_build/``, ignored by git, and
+bound through ctypes); on a CPU tensor it runs ``conv_fwd_plain``, the plain
+PyTorch version of the same contract.  A CUDA call never falls back to the
+plain version: a build or launch failure raises.
+
+The kernel replaces the forward Pallas kernels ``_fwd_kernel_resident``,
+``_fwd_kernel`` and ``_fwd_kernel_csr`` of
+pointwise_tpu/kernels/pointwise_conv_pallas.py (see the note at the top of
+the CUDA source).  It walks, for each center tile of ``TILE`` centers, a
+list of candidate tiles of ``TILE`` points: every tile (the dense walk,
+``tile_ptr=tile_idx=None``) or the bbox-adjacent ones from
+``tile_adjacency`` (the CSR walk).  ``LAUNCHES`` counts the launches of each walk mode.
+
+Shared contract of ``conv_fwd`` and ``conv_fwd_plain`` (all padded by the op
+layer, ops/pointwise_conv.py):
+  ctr   (B, Ncp, 3) f32  centers; padding and masked centers at -SENTINEL
+  pts   (B, Mp, 3)  f32  candidates; padding and masked ones at +SENTINEL
+  feats (B, Mp, Cin) f32 or bf16 (the matmul type)
+  w     (27, Cin, Cout)  same dtype as feats
+  bias  (Cout,) f32
+  tile_ptr (B*Ncp/TILE + 1,) int32 and tile_idx (nnz,) int32, or None: the
+        CSR walk's compact list; center tile (b, row) walks the candidate
+        tiles tile_idx[tile_ptr[b*Ncp/TILE + row] : tile_ptr[... + 1]]
+Returns y (B, Ncp, Cout) f32 and the per-cell neighbor counts
+(B, Ncp, 27) f32.  Ncp and Mp are multiples of TILE.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+N_CELLS = 27
+# Padding points live here; far enough that no real point is within any
+# practical radius, close enough that squared distances stay finite in f32.
+SENTINEL = 1.0e6
+# Coordinates at or beyond this magnitude are sentinel padding; bbox
+# computations ignore them.
+_SENTINEL_CUT = 5.0e5
+
+TILE = 64              # center-list row tile and candidate tile (points)
+_MAX_SMEM = 232_448    # dynamic shared memory one block may use on sm_90
+
+_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_DIR, "csrc")
+_BUILD_DIR = os.path.join(_DIR, "_build")
+_SOURCES = ("pointwise_conv_fwd.cu",)
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel launches per walk mode: the wrapper adds one per launch, nowhere
+# else.  Callers reset them to show that a run went through the kernel.
+LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0}
+# Library loads in this process (a build from source, or loading a library
+# built earlier from the same source), the seconds they took, and the
+# compiler's resource report (registers, shared memory, spills).
+LIBRARY = {"loads": 0, "seconds": 0.0, "ptxas": ""}
+
+_libs: dict = {}
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (shutil.which("nvcc"),
+                 home and os.path.join(home, "bin", "nvcc"),
+                 "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built from "
+                       "source at first use and need the CUDA toolkit")
+
+
+def _so_path(src: str) -> str:
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    with open(os.path.join(_CSRC, src), "rb") as f:
+        h.update(f.read())
+    stem = os.path.splitext(src)[0]
+    return os.path.join(_BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
+
+
+def build_libraries() -> dict:
+    """Build every kernel source missing from the build directory (one
+    ``nvcc`` per source, all started together) and load them all.  Returns
+    {source stem: ctypes library}.  Raises on any compile or load error."""
+    if len(_libs) == len(_SOURCES):
+        return _libs
+    t0 = time.perf_counter()
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    procs = []
+    for src in _SOURCES:
+        so = _so_path(src)
+        if os.path.exists(so):
+            continue
+        # temp file + atomic rename: a concurrent process never loads a
+        # half-written library
+        tmp = f"{so}.tmp.{os.getpid()}"
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+        procs.append((src, so, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    logs = []
+    failed = []
+    for src, so, tmp, p in procs:
+        out, _ = p.communicate()
+        logs.append(out)
+        if p.returncode != 0:
+            failed.append(f"{src}:\n{out[-4000:]}")
+            if os.path.exists(tmp):
+                os.remove(tmp)
+            continue
+        os.replace(tmp, so)
+        with open(so + ".log", "w") as f:
+            f.write(out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    for src in _SOURCES:
+        so = _so_path(src)
+        if not logs and os.path.exists(so + ".log"):
+            with open(so + ".log") as f:
+                logs.append(f.read())
+        _libs[os.path.splitext(src)[0]] = _bind(ctypes.CDLL(so))
+    LIBRARY["loads"] += 1
+    LIBRARY["seconds"] += time.perf_counter() - t0
+    LIBRARY["ptxas"] = "".join(logs)
+    return _libs
+
+
+def _bind(lib):
+    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pw_conv_fwd.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
+    lib.pw_conv_fwd.restype = ci
+    lib.pw_conv_smem_bytes.argtypes = [ci, ci]
+    lib.pw_conv_smem_bytes.restype = ctypes.c_longlong
+    lib.pw_conv_tile.restype = ci
+    if lib.pw_conv_tile() != TILE:
+        raise RuntimeError(f"kernel TILE {lib.pw_conv_tile()} != {TILE}")
+    return lib
+
+
+def _inv_cell(radius: float) -> float:
+    return float(np.float32(3.0 / (2.0 * radius)))
+
+
+def _check(ctr, pts, feats, w, bias, tile_ptr, tile_idx):
+    B, Ncp, _ = ctr.shape
+    Mp = pts.shape[1]
+    cin, cout = w.shape[1], w.shape[2]
+    if ctr.shape != (B, Ncp, 3) or pts.shape != (B, Mp, 3):
+        raise ValueError(f"ctr/pts must be (B, N, 3), got {tuple(ctr.shape)} "
+                         f"and {tuple(pts.shape)}")
+    if Ncp % TILE or Mp % TILE:
+        raise ValueError(f"Ncp={Ncp} and Mp={Mp} must be multiples of {TILE}")
+    if feats.shape != (B, Mp, cin) or w.shape != (N_CELLS, cin, cout):
+        raise ValueError(f"feats {tuple(feats.shape)} / w {tuple(w.shape)} "
+                         f"do not match (B={B}, Mp={Mp}, 27, Cin, Cout)")
+    if bias.shape != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
+    if ctr.dtype != torch.float32 or pts.dtype != torch.float32 \
+            or bias.dtype != torch.float32:
+        raise TypeError("ctr, pts and bias must be float32")
+    if feats.dtype not in (torch.float32, torch.bfloat16) \
+            or w.dtype != feats.dtype:
+        raise TypeError(f"feats and w must share float32 or bfloat16, got "
+                        f"{feats.dtype} and {w.dtype}")
+    if (tile_ptr is None) != (tile_idx is None):
+        raise ValueError("pass tile_ptr and tile_idx together (or neither: "
+                         "dense walk)")
+    if tile_ptr is not None:
+        nR, nC = Ncp // TILE, Mp // TILE
+        if tile_ptr.shape != (B * nR + 1,) or tile_idx.ndim != 1 \
+                or tile_idx.numel() > B * nR * nC \
+                or tile_ptr.dtype != torch.int32 \
+                or tile_idx.dtype != torch.int32:
+            raise ValueError(f"tile_ptr must be int32 ({B * nR + 1},) and "
+                             f"tile_idx int32 (at most {B * nR * nC},)")
+    return B, Ncp, Mp, cin, cout
+
+
+def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
+             tile_idx=None):
+    """Forward conv (see the module docstring).  Launches the CUDA kernel on
+    CUDA tensors, runs ``conv_fwd_plain`` on CPU tensors."""
+    if ctr.device.type == "cpu":
+        return conv_fwd_plain(ctr, pts, feats, w, bias, radius, tile_ptr,
+                              tile_idx)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"unsupported device {ctr.device}")
+    B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
+                                   tile_idx)
+    tensors = [ctr, pts, feats, w, bias] + (
+        [] if tile_ptr is None else [tile_ptr, tile_idx])
+    for t in tensors:
+        if t.device != ctr.device:
+            raise ValueError(f"all inputs must be on {ctr.device}, got "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError("all inputs must be contiguous")
+    lib = build_libraries()["pointwise_conv_fwd"]
+    bf16 = int(feats.dtype == torch.bfloat16)
+    smem = lib.pw_conv_smem_bytes(cin, bf16)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"Cin={cin} needs {smem} B of shared memory per "
+                         f"block (limit {_MAX_SMEM})")
+    y = torch.empty((B, Ncp, cout), dtype=torch.float32, device=ctr.device)
+    cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32,
+                      device=ctr.device)
+    with torch.cuda.device(ctr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.pw_conv_fwd(
+            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), w.data_ptr(),
+            bias.data_ptr(),
+            None if tile_ptr is None else tile_ptr.data_ptr(),
+            None if tile_idx is None else tile_idx.data_ptr(), y.data_ptr(),
+            cnt.data_ptr(), B, Ncp, Mp, cin, cout, float(radius),
+            _inv_cell(radius), bf16, stream)
+    if err != 0:
+        raise RuntimeError(f"pw_conv_fwd launch failed: cudaError {err}")
+    LAUNCHES["fwd_dense" if tile_ptr is None else "fwd_csr"] += 1
+    return y, cnt
+
+
+def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
+                   tile_idx=None):
+    """Plain PyTorch version of ``conv_fwd``: the same padded inputs, the
+    same tile list and the same rounding points (features in the matmul
+    type, f32 cell sums and counts, means divided in f32 and rounded to the
+    matmul type, f32 product, f32 bias).  Walks one center tile at a time
+    over the candidates of its listed tiles, so memory stays bounded by one
+    tile's pairs whatever the number of points."""
+    B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
+                                   tile_idx)
+    dev = ctr.device
+    r = torch.tensor(radius, dtype=torch.float32)
+    inv = torch.tensor(_inv_cell(radius), dtype=torch.float32)
+    r2 = r * r
+    x = feats.float()
+    sums = torch.zeros((B, Ncp, N_CELLS, cin), dtype=torch.float32,
+                       device=dev)
+    cnt = torch.zeros((B, Ncp, N_CELLS), dtype=torch.float32, device=dev)
+    lane = torch.arange(TILE, device=dev)
+    all_tiles = torch.arange(Mp // TILE, device=dev)
+    ptr_h = None if tile_ptr is None else tile_ptr.cpu().tolist()
+    for b in range(B):
+        for row in range(Ncp // TILE):
+            if tile_ptr is None:
+                tiles = all_tiles
+            else:
+                i = b * (Ncp // TILE) + row
+                tiles = tile_idx[ptr_h[i]:ptr_h[i + 1]].long()
+            if tiles.numel() == 0:
+                continue
+            cidx = (tiles[:, None] * TILE + lane[None, :]).reshape(-1)
+            c = ctr[b, row * TILE:(row + 1) * TILE]            # (TILE, 3)
+            rel = pts[b, cidx][None, :, :] - c[:, None, :]     # (TILE, n, 3)
+            d2 = (rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
+                  + rel[..., 2] * rel[..., 2])
+            ax = torch.clamp_max(torch.floor((rel + r) * inv), 2.0)
+            code = (ax[..., 0] * 3.0 + ax[..., 1]) * 3.0 + ax[..., 2]
+            ok = (d2 <= r2) & (code >= 0) & (code < N_CELLS)
+            ii, jj = torch.nonzero(ok, as_tuple=True)
+            slot = ii * N_CELLS + code[ii, jj].long()
+            s = sums[b, row * TILE:(row + 1) * TILE].view(-1, cin)
+            s.index_add_(0, slot, x[b, cidx[jj]])
+            cnt[b, row * TILE:(row + 1) * TILE].view(-1).index_add_(
+                0, slot, torch.ones_like(slot, dtype=torch.float32))
+    xbar = sums / torch.clamp_min(cnt, 1.0)[..., None]
+    xbar = xbar.to(feats.dtype).float()
+    y = xbar.reshape(B, Ncp, N_CELLS * cin) @ w.float().reshape(
+        N_CELLS * cin, cout)
+    return y + bias, cnt
+
+
+# ---- tile-bbox adjacency (plain tensor code, not a kernel) ---------------
+
+
+def _row_tile_boxes(pts, tile: int):
+    """Sentinel-aware per-tile bboxes of (B, N, 3) points; (B, n, 3) lo/hi.
+    (Serves both sides: the port keeps candidates in the same (B, M, 3)
+    layout as centers, where the TPU kernels wanted them transposed.)"""
+    B, N, _ = pts.shape
+    t = pts.reshape(B, N // tile, tile, 3)
+    v = torch.abs(t) < _SENTINEL_CUT
+    big = torch.tensor(1.0e9, dtype=torch.float32, device=pts.device)
+    return (torch.where(v, t, big).amin(dim=2),
+            torch.where(v, t, -big).amax(dim=2))
+
+
+def _boxes_adjacency(radius: float, lo_r, hi_r, lo_c, hi_c,
+                     rows_per_chunk: int = 512):
+    """Per-row-tile lists of bbox-adjacent column tiles, as compact CSR.
+
+    Returns tile_ptr (B*nR + 1,) int32, the offsets, and tile_idx (nnz,)
+    int32: row tile (b, r) lists tile_idx[tile_ptr[b*nR + r] :
+    tile_ptr[b*nR + r + 1]], its adjacent column tiles in ascending order.
+    The list has no length cap.  A conservative test (bbox gap with a small
+    slack): every in-ball pair lies in an adjacent tile pair.  The bbox gaps
+    are taken ``rows_per_chunk`` row tiles at a time, so only the boolean
+    (B, nR, nC) adjacency is held whole."""
+    B, nR, _ = lo_r.shape
+    nC = lo_c.shape[1]
+    thresh = float(np.float32(np.float32(radius * radius) * np.float32(1.0001)
+                              + np.float32(1e-9)))
+    adj = torch.empty((B, nR, nC), dtype=torch.bool, device=lo_r.device)
+    for r0 in range(0, nR, rows_per_chunk):
+        rows = slice(r0, r0 + rows_per_chunk)
+        d2 = None
+        for a in range(3):         # x, y, z summed in that order
+            gap = torch.clamp_min(torch.maximum(
+                lo_r[:, rows, None, a] - hi_c[:, None, :, a],
+                lo_c[:, None, :, a] - hi_r[:, rows, None, a]), 0.0)
+            d2 = gap * gap if d2 is None else d2 + gap * gap
+        adj[:, rows] = d2 <= thresh
+    if B * nR * nC > np.iinfo(np.int32).max:
+        raise ValueError(f"{B}x{nR}x{nC} tile pairs overflow int32 offsets")
+    tile_ptr = torch.zeros(B * nR + 1, dtype=torch.int32, device=adj.device)
+    tile_ptr[1:] = torch.cumsum(adj.sum(dim=-1).reshape(-1), 0)
+    tile_idx = (torch.nonzero(adj.reshape(-1))[:, 0] % nC).to(torch.int32)
+    return tile_ptr, tile_idx.contiguous()
+
+
+def tile_adjacency(ctr, pts, radius: float):
+    """Center-tile -> candidate-tile lists (tile_ptr, tile_idx) for the CSR
+    walk of ``conv_fwd``."""
+    lo_r, hi_r = _row_tile_boxes(ctr, TILE)
+    lo_c, hi_c = _row_tile_boxes(pts, TILE)
+    return _boxes_adjacency(radius, lo_r, hi_r, lo_c, hi_c)
