@@ -5,7 +5,8 @@
 
 Phases, each printing one JSON line:
   device   the card's name, count and power limit (nvidia-smi);
-  build    nvcc builds the forward kernel from kernels/csrc/ (first use);
+  build    nvcc builds the forward, dW and dX kernels from kernels/csrc/
+           (first use; one nvcc per source, all started together);
   parity   kernel vs its plain PyTorch version on the card, dense and CSR
            walks, f32 and bf16, B=4, p=4096/8192, Cin=6/124, Cout=124,
            centers != candidates, masked centers, sentinel padding and a
@@ -16,23 +17,43 @@ Phases, each printing one JSON line:
            file (2,016 points, the only request whose tiles take the dense
            walk); the launch counters are zeroed just before and read just
            after, and both walk modes must have launched;
+  grad     the dW and dX kernels vs their plain versions on the parity
+           phase's inputs (gradient g from a numpy seed), dense and CSR
+           walks, f32 and bf16; two launches give identical bits and the
+           two walks give identical bits; loss.backward() through
+           pointwise_conv on CUDA tensors launches dw_* and dx_*;
+  train    the train CLI's function in-process at full width, 20 steps
+           each: s3dis_synthetic_local (CSR walk) and modelnet40_synthetic
+           (dense walk), checkpoints in a temp dir; finite loss, grad norm
+           > 0, changed weights, the dw_*/dx_* launches of the walk (counts
+           zeroed just before each run, read just after), ms/step after 2
+           warm-up steps, trained points/s and the device idle share of
+           two traced steps; a second run of the same seed, stopped at
+           step 10 and resumed, must end on the same bits; then infer
+           serves one 200K request from the segmentation checkpoint;
   trace    one more 200K scene under torch.profiler: the device's busy
            and idle share of the request and its costliest device ops;
   exact    streamed logits == a direct full-scene forward on a ~20K scene
            (f32 convs, 2e-4);
-  times    each walk mode timed with CUDA events per layer, beside the
-           plain version, the roofline bound of those inputs and the max
-           error: the CSR walk on the largest conv call the serve phase
-           made, the dense walk on a full batch of four small-object scans
-           (a direct forward of the served model, captured the same way).
-Then the ``kernels`` line, the nvidia-smi line and, last, the result line.
+  times    each kernel and walk mode timed with CUDA events per layer,
+           beside the plain version, the roofline bound of those inputs
+           and the max error: the forward's CSR walk on the largest conv
+           call the serve phase made, its dense walk on a full batch of
+           four small-object scans (a direct forward of the served model,
+           captured the same way); dW and dX on the conv inputs of the
+           train phase (CSR: segmentation, dense: classification) with g
+           from a numpy seed.
+Then the ``kernels`` line (six kernels), the nvidia-smi line and, last, the
+result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import json
+import math
 import os
 import subprocess
 import sys
@@ -42,11 +63,19 @@ import time
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 BF16_FLOPS = 989e12            # bf16 tensor cores, dense
-KERNELS = {
-    "fwd_dense": "pointwise_tpu/kernels/pointwise_conv_pallas.py:320",
-    "fwd_csr": "pointwise_tpu/kernels/pointwise_conv_pallas.py:599",
+_PALLAS = "pointwise_tpu/kernels/pointwise_conv_pallas.py"
+_CSRC = "pointwise_torch/kernels/csrc"
+KERNELS = {     # name: (the TPU kernel it replaces, its source here)
+    "fwd_dense": (f"{_PALLAS}:320", f"{_CSRC}/pointwise_conv_fwd.cu"),
+    "fwd_csr": (f"{_PALLAS}:599", f"{_CSRC}/pointwise_conv_fwd.cu"),
+    "dw_dense": (f"{_PALLAS}:396", f"{_CSRC}/pointwise_conv_dw.cu"),
+    "dw_csr": (f"{_PALLAS}:636", f"{_CSRC}/pointwise_conv_dw.cu"),
+    "dx_dense": (f"{_PALLAS}:527", f"{_CSRC}/pointwise_conv_dx.cu"),
+    "dx_csr": (f"{_PALLAS}:748", f"{_CSRC}/pointwise_conv_dx.cu"),
 }
-SOURCE = "pointwise_torch/kernels/csrc/pointwise_conv_fwd.cu"
+TRAIN_STEPS = 20
+TRAIN_CONFIGS = (("s3dis_synthetic_local", "csr"),
+                 ("modelnet40_synthetic", "dense"))
 
 
 def emit(rec):
@@ -148,30 +177,150 @@ def phase_parity(dev, sizes=(4096, 8192), batch=4):
     emit({"phase": "parity", "ok": True, "cases": cases})
 
 
-class ConvRecorder:
-    """Forward hooks on every PointwiseConv: keeps, per (walk mode, layer),
-    the inputs of the largest call, so the times phase runs the kernel at
-    the shapes the served path gave it."""
+def compare_grad(x, x_ref, precision):
+    """(max abs error, ok): f32 1e-4, bf16 2e-2, both relative to max
+    |x_ref| (dW sums over every center, so its scale grows with B * N)."""
+    err = float((x - x_ref).abs().max())
+    tol = 1e-4 if precision == "float32" else 2e-2
+    return err, err <= tol * float(x_ref.abs().max())
 
-    def __init__(self, model):
+
+def grad_inputs(kw, seed, nc=None):
+    """The forward's counts, a gradient g from a numpy seed (zero on the
+    centers past ``nc``, the padding the op slices off) and the transposed
+    tile list of the CSR walk: (dW args, dX args)."""
+    import numpy as np
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    _, cnt = tk.conv_fwd(**kw)
+    b, ncp, _ = kw["ctr"].shape
+    g = np.random.RandomState(seed).standard_normal(
+        (b, ncp, kw["w"].shape[2])).astype(np.float32)
+    g[:, ncp if nc is None else nc:] = 0.0
+    g = torch.from_numpy(g).to(cnt.device)
+    ptr_t = idx_t = None
+    if kw["tile_ptr"] is not None:
+        ptr_t, idx_t = tk.tile_adjacency(kw["pts"], kw["ctr"], kw["radius"])
+    return ((kw["ctr"], kw["pts"], kw["feats"], g, cnt, kw["radius"],
+             kw["tile_ptr"], kw["tile_idx"]),
+            (kw["ctr"], kw["pts"], g, cnt, kw["w"], kw["radius"], ptr_t,
+             idx_t))
+
+
+def phase_grad(dev, sizes=(4096, 8192), batch=4):
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.ops import pointwise_conv
+    from pointwise_torch.ops.pointwise_conv import conv_layout
+
+    cases = []
+    for p in sizes:
+        for cin, radius in ((6, 0.09375), (124, 0.375)):
+            inp = parity_inputs(dev, batch, p, cin, 124, radius, seed=p + cin)
+            for precision in ("float32", "bfloat16"):
+                outs = {}
+                for csr in (False, True):
+                    kw, (_, nc, _) = conv_layout(
+                        inp["points"], inp["features"], inp["weights"],
+                        inp["bias"], radius=radius, mask=inp["mask"],
+                        centers=inp["centers"],
+                        center_mask=inp["center_mask"], precision=precision,
+                        csr=csr)
+                    dw_args, dx_args = grad_inputs(kw, seed=p + cin + 1,
+                                                   nc=nc)
+                    dw, dx = tk.conv_dw(*dw_args), tk.conv_dx(*dx_args)
+                    again = (tk.conv_dw(*dw_args), tk.conv_dx(*dx_args))
+                    dw_p = tk.conv_dw_plain(*dw_args)
+                    dx_p = tk.conv_dx_plain(*dx_args)
+                    torch.cuda.synchronize()
+                    outs[csr] = (dw, dx)
+                    rec = dict(p=p, cin=cin, radius=radius,
+                               walk="csr" if csr else "dense",
+                               precision=precision,
+                               repeat_identical=bool(
+                                   torch.equal(dw, again[0])
+                                   and torch.equal(dx, again[1])))
+                    for name, x, x_p in (("dw", dw, dw_p), ("dx", dx, dx_p)):
+                        err, ok = compare_grad(x, x_p, precision)
+                        rec[f"{name}_max_abs_err"] = err
+                        rec[f"{name}_max_abs"] = float(x_p.abs().max())
+                        rec[f"{name}_ok"] = ok
+                    cases.append(rec)
+                    if not (rec["dw_ok"] and rec["dx_ok"]
+                            and rec["repeat_identical"]):
+                        emit({"phase": "grad", "failed": rec})
+                        raise AssertionError(f"grad kernel != plain: {rec}")
+                same = all(torch.equal(a, b)
+                           for a, b in zip(outs[False], outs[True]))
+                cases[-1]["walks_identical"] = same
+                if not same:
+                    emit({"phase": "grad", "failed": cases[-1]})
+                    raise AssertionError(f"dense != CSR bits: {cases[-1]}")
+    # the backward of the public op runs the kernels
+    inp = parity_inputs(dev, batch, 4096, 124, 124, 0.375, seed=7)
+    tk.reset_launches()
+    for csr in (False, True):
+        f = inp["features"].clone().requires_grad_(True)
+        w = inp["weights"].clone().requires_grad_(True)
+        y = pointwise_conv(inp["points"], f, w, inp["bias"], radius=0.375,
+                           mask=inp["mask"], precision="bfloat16", csr=csr)
+        (y.float() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    if any(launches[k] != 1 for k in ("dw_dense", "dw_csr", "dx_dense",
+                                      "dx_csr")):
+        raise AssertionError(f"backward did not launch the kernels: "
+                             f"{launches}")
+    emit({"phase": "grad", "ok": True, "cases": cases,
+          "backward_launches": launches})
+
+
+class ConvRecorder:
+    """A global forward hook on every PointwiseConv that runs (the train CLI
+    builds its own model): keeps, per (kernel family and walk, layer), the
+    inputs of the largest call, so the times phase runs the kernels at the
+    shapes the main path gave them, and counts what the backward of each
+    call launches.  A conv's layer is told by its radius (``radii``);
+    ``prefix`` is the family its calls are filed under ("fwd", "dw")."""
+
+    def __init__(self, radii, prefix="fwd"):
+        import torch
+
+        from pointwise_torch.models.layers import PointwiseConv
         from pointwise_torch.ops.pointwise_conv import csr_walk
 
         self.calls = {}
-        self.handles = []
-        for layer, blk in enumerate(model.blocks):
-            def hook(mod, args, out, layer=layer):
-                points, x, mask, centers, center_mask = args
-                key = ("fwd_csr" if csr_walk(points.shape[1]) else
-                       "fwd_dense", layer)
-                nc = (points if centers is None else centers).shape[1]
-                size = points.shape[0] * points.shape[1] * nc
-                if size > self.calls.get(key, (0,))[0]:
-                    self.calls[key] = (size, mod, args)
-            self.handles.append(blk.conv.register_forward_hook(hook))
+        self.backward_calls = collections.Counter()
+
+        def hook(mod, args, out):
+            if not isinstance(mod, PointwiseConv):
+                return
+            layer = list(radii).index(mod.radius)
+            points, x, mask, centers, center_mask = (
+                list(args) + [None] * 5)[:5]
+            walk = "csr" if csr_walk(points.shape[1]) else "dense"
+            if torch.is_grad_enabled():
+                # what the backward of this call launches
+                self.backward_calls[(f"dw_{walk}", layer)] += int(
+                    mod.kernel.requires_grad)
+                self.backward_calls[(f"dx_{walk}", layer)] += int(
+                    x.requires_grad)
+            nc = (points if centers is None else centers).shape[1]
+            size = points.shape[0] * points.shape[1] * nc
+            key = (f"{prefix}_{walk}", layer)
+            if size > self.calls.get(key, (0,))[0]:
+                self.calls[key] = (size, mod, tuple(
+                    None if a is None else a.detach()
+                    for a in (points, x, mask, centers, center_mask)))
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(
+            hook)
 
     def remove(self):
-        for h in self.handles:
-            h.remove()
+        self.handle.remove()
 
 
 def small_scan(seed):
@@ -209,7 +358,7 @@ def phase_serve(dev, workdir, warm_points=200_000,
         "--profile-file", os.path.join(workdir, "profiles.json")])
     cfg = get_config(args.config)
     model = infer.build_model(cfg, dev)          # numpy seed -> convert.py
-    recorder = ConvRecorder(model)
+    recorder = ConvRecorder(cfg.radii)
     replies = []
     requests = [*requests, small_scan_file(os.path.join(workdir, "scan.npy"))]
 
@@ -227,7 +376,7 @@ def phase_serve(dev, workdir, warm_points=200_000,
     bad = [r for r in replies if "error" in r]
     if bad or len(replies) != 1 + len(requests) or not replies[0].get("ready"):
         raise AssertionError(f"serve failed: {replies}")
-    if min(launches.values()) <= 0:
+    if min(launches["fwd_dense"], launches["fwd_csr"]) <= 0:
         raise AssertionError(f"a walk mode never launched: {launches}")
     for r in replies[1:]:
         if not (0.0 <= r["accuracy"] <= 1.0 and r["pts_per_s"] > 0):
@@ -250,7 +399,7 @@ def dense_calls(dev, model, batch=4):
     scans = [small_scan(seed) for seed in range(1, batch + 1)]
     xyz = np.stack([s[0] for s in scans])
     feats = np.stack([infer.scene_features(cfg, s[0], s[1]) for s in scans])
-    recorder = ConvRecorder(model)
+    recorder = ConvRecorder(cfg.radii)
     with torch.inference_mode():
         model(torch.from_numpy(xyz).to(dev),
               torch.from_numpy(feats.astype(np.float32)).to(dev),
@@ -261,6 +410,131 @@ def dense_calls(dev, model, batch=4):
         raise AssertionError(f"the scans did not take the dense walk: "
                              f"{sorted(recorder.calls)}")
     return recorder.calls
+
+
+def device_busy_s(prof):
+    """(seconds of device time in a torch.profiler run, 0 if it saw none;
+    the device ops; their self device time in us, as a function)."""
+    import torch
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(dev_us(e) for e in ops) / 1e6, ops, dev_us
+
+
+def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
+    """Both configurations through the train CLI's function; returns
+    ({config: summary}, {(kernel_walk, layer): recorded conv call},
+    {(kernel_walk, layer): dW / dX launches per training step}, the
+    segmentation checkpoint directory)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.train import cli, get_config
+
+    summaries, calls, per_step = {}, {}, {}
+    for config, walk in TRAIN_CONFIGS:
+        cfg = get_config(config)
+        ck = os.path.join(workdir, config)
+        marks, metrics, prof = {}, [], []
+
+        def on_step(step, m):
+            # device-synchronised wall clock after every step; steps
+            # traced[0]..traced[1] run under the profiler
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+            metrics.append({k: float(v) for k, v in m.items()})
+            if step == traced[0] - 1:
+                prof.append(profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]))
+                prof[0].__enter__()
+            elif step == traced[1]:
+                prof[0].__exit__(None, None, None)
+
+        recorder = ConvRecorder(cfg.radii, prefix="dw")
+        tk.reset_launches()
+        trainer = cli.main(["--config", config, "--steps", str(steps),
+                            "--device", dev.type, "--checkpoint-dir", ck],
+                           on_step=on_step)
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        recorder.remove()
+        initial, _ = (cli.build_segmenter if walk == "csr"
+                      else cli.build_classifier)(cfg, dev)
+        final = trainer.model.state_dict()
+        changed = any(not torch.equal(a, b) for a, b in zip(
+            final.values(), initial.state_dict().values()))
+        # the same seed, stopped half way and resumed from its checkpoint,
+        # must end on the same bits (every reduction runs in a fixed order)
+        common = ["--config", config, "--device", dev.type,
+                  "--checkpoint-dir", os.path.join(workdir, f"{config}_2")]
+        cli.main(common + ["--steps", str(steps // 2)])
+        resumed = cli.main(common + ["--steps", str(steps), "--resume"])
+        repeat = all(torch.equal(a, b) for a, b in zip(
+            final.values(), resumed.model.state_dict().values()))
+        step_s = (marks[steps] - marks[2]) / (steps - 2)
+        wall = marks[traced[1]] - marks[traced[0] - 1]
+        busy, ops, dev_us = device_busy_s(prof[0])
+        rec = dict(config=config, walk=walk, steps=steps,
+                   batch=cfg.batch_size, points=cfg.num_points,
+                   launches=launches, weights_changed=changed,
+                   resumed_run_bitwise_equal=repeat,
+                   ms_per_step=step_s * 1e3,
+                   trained_points_per_s=cfg.batch_size * cfg.num_points
+                   / step_s,
+                   loss_first=metrics[0]["loss"], loss_last=metrics[-1]["loss"],
+                   grad_norm_min=min(m["grad_norm"] for m in metrics),
+                   traced_steps=list(traced), traced_wall_s=wall,
+                   device_busy_s=busy if busy > 0 else "not measured")
+        if busy > 0:
+            rec["device_idle_share"] = 1.0 - busy / wall
+            rec["top"] = [{"op": e.key[:80], "ms": dev_us(e) / 1e3,
+                           "calls": e.count}
+                          for e in sorted(ops, key=dev_us, reverse=True)[:6]]
+        emit({"phase": "train", **rec})
+        finite = all(math.isfinite(m["loss"]) for m in metrics)
+        need = [f"dw_{walk}", f"dx_{walk}"]
+        per_layer = {k: sum(v for (n, _), v in
+                            recorder.backward_calls.items() if n == k)
+                     for k in need}
+        if not (finite and rec["grad_norm_min"] > 0 and changed and repeat
+                and len(metrics) == steps
+                and all(launches[k] > 0 for k in need)
+                and all(per_layer[k] == launches[k] for k in need)):
+            raise AssertionError(f"training failed: {rec}, hooks saw "
+                                 f"{per_layer}")
+        summaries[config] = rec
+        calls.update(recorder.calls)
+        per_step.update({k: v / steps
+                         for k, v in recorder.backward_calls.items()})
+    return (summaries, calls, per_step,
+            os.path.join(workdir, TRAIN_CONFIGS[0][0]))
+
+
+def phase_serve_trained(dev, ck, n_points=200_000):
+    """infer --checkpoint-dir: the trained segmenter answers one request."""
+    from pointwise_torch import infer
+    from pointwise_torch.train import get_config
+
+    config = TRAIN_CONFIGS[0][0]
+    args = infer.parse_args(["--serve", "--config", config, "--device",
+                             dev.type, "--checkpoint-dir", ck,
+                             "--warm-points", "0"])
+    cfg = get_config(config)
+    model = infer.build_model(cfg, dev, checkpoint_dir=ck)
+    replies = []
+    infer.serve(args, cfg, model, requests=[f"synth:{n_points}"],
+                emit=replies.append)
+    emit({"phase": "train", "served_from_checkpoint": replies})
+    if len(replies) != 2 or "error" in replies[1] \
+            or not replies[1]["pts_per_s"] > 0:
+        raise AssertionError(f"serving the trained checkpoint failed: "
+                             f"{replies}")
 
 
 def phase_trace(dev, n_points=200_000, top=8):
@@ -291,14 +565,7 @@ def phase_trace(dev, n_points=200_000, top=8):
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    dev_ops = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    busy = sum(dev_us(e) for e in dev_ops) / 1e6
+    busy, dev_ops, dev_us = device_busy_s(prof)
     rec = {"phase": "trace", "n_points": len(xyz), "wall_s": wall}
     if busy <= 0:
         rec["device_busy_s"] = "not measured"
@@ -351,28 +618,72 @@ def cuda_time_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(kw, y, cnt, centers):
-    """Least time (ms) the card needs for this call, the larger of two:
-    the bytes moved (each input read once, each output written once; of the
-    CSR walk's tile list only its offsets and the nnz indices it holds)
-    over HBM bandwidth, and the work these inputs need over the peak rate
-    of its type.  The work is two parts that different units can run at
-    once, so the slower one bounds it: the cell-sum adds of the in-ball
-    pairs (f32, CUDA cores) and the (27*Cin) x Cout product of the
-    ``centers`` real centers (tensor cores in the matmul type)."""
-    ins = [kw[k] for k in ("ctr", "pts", "feats", "w", "bias", "tile_ptr",
-                           "tile_idx") if kw[k] is not None]
-    nbytes = sum(t.numel() * t.element_size() for t in ins + [y, cnt])
-    cin, cout = kw["w"].shape[1], kw["w"].shape[2]
-    pairs = float(cnt.sum())
-    t_ops = max(pairs * cin / F32_FLOPS, 2.0 * 27 * cin * cout * centers / (
-        BF16_FLOPS if kw["feats"].dtype.itemsize == 2 else F32_FLOPS))
+def bound(inputs, outputs, pairs, pair_width, rows, cin, cout, bf16):
+    """Least time (ms) the card needs for one call, the larger of two: the
+    bytes moved (each input read once, each output written once; of a
+    CSR tile list only its offsets and the indices it holds) over HBM
+    bandwidth, and the work these inputs need over the peak rate of its
+    type.  The work is two parts that different units can run at once, so
+    the slower one bounds it: ``pair_width`` f32 adds per in-ball pair on
+    the CUDA cores (Cin for the forward and dW, Cout for dX) and the
+    (27*Cin) x Cout product of ``rows`` real rows (tensor cores in the
+    matmul type).  Returns (ms, "bytes" or "operations", bytes)."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs
+                 if t is not None)
+    t_ops = max(pairs * pair_width / F32_FLOPS, 2.0 * 27 * cin * cout * rows
+                / (BF16_FLOPS if bf16 else F32_FLOPS))
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations", nbytes, pairs)
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
 
 
-def phase_times(calls):
+def _real_rows(points, mask, nc, cmask):
+    """(real centers, real candidates) of one recorded conv call."""
+    centers = points.shape[0] * nc if cmask is None else float(cmask.sum())
+    cands = (points.shape[0] * points.shape[1] if mask is None
+             else float(mask.sum()))
+    return centers, cands
+
+
+def _shape(kw):
+    return dict(B=int(kw["pts"].shape[0]), Mp=int(kw["pts"].shape[1]),
+                Ncp=int(kw["ctr"].shape[1]), cin=int(kw["w"].shape[1]),
+                cout=int(kw["w"].shape[2]))
+
+
+def _time_row(name, layer, mod, kw, fn, plain, args, inputs, pairs, width,
+              rows, **extra):
+    """One kernel call at a recorded shape: its output against the plain
+    version's, CUDA-event ms (5 launches after one warm-up), the plain
+    version's ms (one call) and the bound."""
+    import torch
+
+    out, ref = fn(*args), plain(*args)
+    if name.startswith("fwd"):
+        err, ok = compare(out[0], ref[0], mod.precision)
+    else:
+        err, ok = compare_grad(out, ref, mod.precision)
+    ms = cuda_time_ms(lambda: fn(*args), reps=5)
+    plain_ms = cuda_time_ms(lambda: plain(*args), reps=1, warmup=0)
+    cin, cout = kw["w"].shape[1], kw["w"].shape[2]
+    bound_ms, bound_by, nbytes = bound(
+        inputs, list(out) if isinstance(out, tuple) else [out], pairs, width,
+        rows, cin, cout, kw["feats"].dtype == torch.bfloat16)
+    row = dict(name=name, layer=layer, radius=mod.radius, shape=_shape(kw),
+               precision=mod.precision, pairs=pairs, bytes=nbytes, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               max_abs_err=err, ok=ok, **extra)
+    emit({"phase": "times", **row})
+    if not ok:
+        raise AssertionError(f"kernel != plain at the main path's shape: "
+                             f"{row}")
+    return row
+
+
+def phase_times(calls, per_step):
+    """Forward rows from the serve phase's calls; dW and dX rows from the
+    train phase's (keys "dw_<walk>"), with g from a numpy seed and the
+    launches per training step of each (kernel, layer)."""
     import torch
 
     from pointwise_torch.kernels import pointwise_conv_cuda as tk
@@ -381,35 +692,36 @@ def phase_times(calls):
     rows = []
     for (name, layer), (_, mod, args) in sorted(calls.items()):
         points, x, mask, centers, center_mask = args
+        walk = name.split("_")[1]
         with torch.inference_mode():
             kw, (_, nc, cmask) = conv_layout(
                 points, x, mod.kernel, mod.bias, radius=mod.radius,
                 mask=mask, centers=centers, center_mask=center_mask,
                 precision=mod.precision)
-            if (kw["tile_idx"] is not None) != (name == "fwd_csr"):
+            if (kw["tile_idx"] is not None) != (walk == "csr"):
                 raise AssertionError("walk mode changed between runs")
-            y, cnt = tk.conv_fwd(**kw)
-            y_p, _ = tk.conv_fwd_plain(**kw)
-            err, ok = compare(y, y_p, mod.precision)
-            ms = cuda_time_ms(lambda: tk.conv_fwd(**kw), reps=5)
-            plain_ms = cuda_time_ms(lambda: tk.conv_fwd_plain(**kw), reps=1,
-                                    warmup=0)
-        real = (points.shape[0] * nc if cmask is None
-                else float(cmask.sum()))
-        bound_ms, bound_by, nbytes, pairs = bound(kw, y, cnt, real)
-        rows.append(dict(name=name, layer=layer, radius=mod.radius,
-                         shape=dict(B=int(points.shape[0]),
-                                    Mp=int(kw["pts"].shape[1]),
-                                    Ncp=int(kw["ctr"].shape[1]),
-                                    cin=int(kw["w"].shape[1]),
-                                    cout=int(kw["w"].shape[2])),
-                         precision=mod.precision, pairs=pairs, bytes=nbytes,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                         bound_by=bound_by, max_abs_err=err, ok=ok))
-        emit({"phase": "times", **rows[-1]})
-        if not ok:
-            raise AssertionError(f"kernel != plain at the served shape: "
-                                 f"{rows[-1]}")
+            centers_n, cands_n = _real_rows(points, mask, nc, cmask)
+            cin, cout = kw["w"].shape[1], kw["w"].shape[2]
+            lists = [kw["tile_ptr"], kw["tile_idx"]]
+            if name.startswith("fwd"):
+                fa = tuple(kw[k] for k in ("ctr", "pts", "feats", "w", "bias",
+                                           "radius", "tile_ptr", "tile_idx"))
+                pairs = float(tk.conv_fwd(*fa)[1].sum())
+                rows.append(_time_row(name, layer, mod, kw, tk.conv_fwd,
+                                      tk.conv_fwd_plain, fa,
+                                      list(fa[:5]) + lists, pairs, cin,
+                                      centers_n))
+                continue
+            dw_args, dx_args = grad_inputs(kw, seed=layer, nc=nc)
+            pairs = float(dw_args[4].sum())
+            for kname, fn, plain, a, ins, width, n in (
+                    (f"dw_{walk}", tk.conv_dw, tk.conv_dw_plain, dw_args,
+                     list(dw_args[:5]) + lists, cin, centers_n),
+                    (f"dx_{walk}", tk.conv_dx, tk.conv_dx_plain, dx_args,
+                     list(dx_args[:5]) + list(dx_args[6:]), cout, cands_n)):
+                rows.append(_time_row(
+                    kname, layer, mod, kw, fn, plain, a, ins, pairs, width, n,
+                    launches_per_step=per_step.get((kname, layer), 0.0)))
     return rows
 
 
@@ -441,20 +753,31 @@ def main():
           "ptxas": [ln.strip() for ln in tk.LIBRARY["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln or "smem" in ln]})
     phase_parity(dev)
+    phase_grad(dev)
     os.makedirs(tk._BUILD_DIR, exist_ok=True)     # ignored by git
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
         launches, _, served, model = phase_serve(dev, workdir)
+        trained, train_calls, per_step, seg_ck = phase_train(dev,
+                                                             workdir)
+        phase_serve_trained(dev, seg_ck)
+    # each kernel's launches come from its own path: the forward's from the
+    # serve phase, dW's and dX's from the training run of their walk
+    for rec in trained.values():
+        for k in ("dw", "dx"):
+            name = f"{k}_{rec['walk']}"
+            launches[name] = rec["launches"][name]
     phase_trace(dev)
     phase_exact(dev)
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))
-    rows = phase_times(calls)
+    calls.update(train_calls)
+    rows = phase_times(calls, per_step)
     kernels = []
-    for name, replaces in KERNELS.items():
+    for name, (replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         top = max(mine, key=lambda r: r["ms"])    # the costliest layer
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],

@@ -1,10 +1,12 @@
 """Weight carry-over from the JAX package's parameter trees.
 
-The JAX ``PointwiseSegmenter`` keeps its variables as nested dicts
-(``{"params": ..., "batch_stats": ...}``, as ``jax.device_get`` or
-``flax.traverse_util`` give them); a ``.npz`` holds the same arrays keyed by
-flattened path ("params/PointwiseConvBlock_0/PointwiseConv_0/kernel").
-``segmenter_state_dict`` maps either form onto the port's ``state_dict``:
+The JAX ``PointwiseSegmenter`` and ``PointwiseClassifier`` keep their
+variables as nested dicts (``{"params": ..., "batch_stats": ...}``, as
+``jax.device_get`` or ``flax.traverse_util`` give them); a ``.npz`` holds the
+same arrays keyed by flattened path
+("params/PointwiseConvBlock_0/PointwiseConv_0/kernel").
+``segmenter_state_dict`` and ``classifier_state_dict`` map either form onto
+the port's ``state_dict`` (the two nets share the layout):
 
   PointwiseConvBlock_i/PointwiseConv_0/{kernel,bias} -> blocks.i.conv.*
       (the kernel stays (27, Cin, Cout))
@@ -45,13 +47,24 @@ def flatten(tree: Mapping, prefix: str = "") -> dict:
 def segmenter_state_dict(variables: Mapping) -> dict:
     """JAX segmenter variables (nested or flat "/"-keyed) -> torch
     ``state_dict`` of ``models.PointwiseSegmenter``."""
+    return _state_dict(variables)
+
+
+def classifier_state_dict(variables: Mapping) -> dict:
+    """JAX classifier variables (nested or flat "/"-keyed) -> torch
+    ``state_dict`` of ``models.PointwiseClassifier``."""
+    return _state_dict(variables)
+
+
+def _state_dict(variables: Mapping) -> dict:
     flat = flatten(variables)
     if not any(k.startswith(("params/", "batch_stats/")) for k in flat):
         flat = {f"params/{k}": v for k, v in flat.items()}   # bare params
     dense_ids = sorted({int(m.group(1)) for k in flat
                         if (m := re.match(r"params/Dense_(\d+)/", k))})
     if not dense_ids:
-        raise ValueError("no Dense_* parameters: not a segmenter tree")
+        raise ValueError("no Dense_* parameters: not a segmenter or "
+                         "classifier tree")
     last = dense_ids[-1]
     sd = {}
     for key, arr in flat.items():
@@ -81,6 +94,11 @@ def load_segmenter(model: torch.nn.Module, variables: Mapping) -> None:
     """Load JAX segmenter variables into ``model`` (strict: every tensor of
     the model must be covered, and nothing else)."""
     model.load_state_dict(segmenter_state_dict(variables), strict=True)
+
+
+def load_classifier(model: torch.nn.Module, variables: Mapping) -> None:
+    """Load JAX classifier variables into ``model`` (strict)."""
+    model.load_state_dict(classifier_state_dict(variables), strict=True)
 
 
 def random_segmenter_params(in_features: int, num_classes: int, *,

@@ -10,8 +10,10 @@ version instead (tests, no card).
   python -m pointwise_torch.infer --serve < requests.txt
   python -m pointwise_torch.infer --params weights.npz --data-dir rooms/
 
-Weights: ``--params`` names an ``.npz`` of JAX-layout arrays keyed by
-flattened parameter path (see convert.py); without it the weights are
+Weights: ``--checkpoint-dir`` names a directory of the port's training
+checkpoints (``python -m pointwise_torch.train --checkpoint-dir``; the
+newest is served); ``--params`` names an ``.npz`` of JAX-layout arrays keyed
+by flattened parameter path (see convert.py); with neither the weights are
 random, made from a numpy seed.
 """
 
@@ -34,6 +36,7 @@ from pointwise_torch.kernels import pointwise_conv_cuda as _kernels
 from pointwise_torch.models import PointwiseSegmenter
 from pointwise_torch.streaming import stream_apply, stream_apply_layered
 from pointwise_torch.train import get_config
+from pointwise_torch.train.trainer import checkpoint_steps, load_checkpoint
 
 
 def big_scene(n_points: int, seed: int = 0, num_classes: int = 5):
@@ -104,16 +107,39 @@ def save_profiles(path, profiles):
                   f)
 
 
+def load_trained(model, checkpoint_dir):
+    """Load the newest trainer checkpoint of ``checkpoint_dir`` into
+    ``model``.  The JAX package's orbax checkpoints (numbered step
+    directories) are not readable here and say so."""
+    if not checkpoint_steps(checkpoint_dir):
+        if os.path.isdir(checkpoint_dir) and any(
+                e.isdigit() and os.path.isdir(os.path.join(checkpoint_dir, e))
+                for e in os.listdir(checkpoint_dir)):
+            raise NotImplementedError(
+                f"{checkpoint_dir}: orbax checkpoints of the JAX package are "
+                "not yet ported (export the params to an .npz and pass "
+                "--params)")
+        raise FileNotFoundError(f"no trainer checkpoint in {checkpoint_dir}")
+    state = load_checkpoint(checkpoint_dir, map_location="cpu")
+    model.load_state_dict(state["model"], strict=True)
+
+
 def build_model(cfg, device, params_path=None, precision="bfloat16",
-                seed=0):
+                seed=0, checkpoint_dir=None):
     """The locality-only segmenter of ``cfg`` on ``device`` (eval mode),
-    with weights from a JAX-layout ``.npz`` or random from ``seed``."""
+    with weights from the newest trainer checkpoint of ``checkpoint_dir``,
+    a JAX-layout ``.npz`` or random from ``seed``."""
     model = PointwiseSegmenter(
         num_classes=cfg.num_classes, in_features=cfg.in_features,
         channels=cfg.channels, radii=cfg.radii, head_dims=cfg.head_dims,
         dropout_rate=cfg.dropout, norm=cfg.norm, impl=cfg.impl,
         precision=precision, use_global_context=False,  # locality => exact
         device=device)
+    if checkpoint_dir:
+        if params_path:
+            raise ValueError("pass --checkpoint-dir or --params, not both")
+        load_trained(model, checkpoint_dir)
+        return model.eval()
     if params_path:
         with np.load(params_path) as z:
             variables = {k: z[k] for k in z.files}
@@ -228,7 +254,8 @@ def parse_args(argv=None):
                     help="JAX-layout weights (.npz keyed by flattened param "
                          "path); random weights from a seed when omitted")
     ap.add_argument("--checkpoint-dir", default=None,
-                    help="orbax checkpoints: not yet ported (use --params)")
+                    help="serve the newest checkpoint that "
+                         "python -m pointwise_torch.train wrote here")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--points", type=int, default=1_000_000,
@@ -263,14 +290,12 @@ def main(argv=None):
     args = parse_args(argv)
     if args.dp or args.sp > 1:
         raise NotImplementedError("--dp / --sp: not yet ported")
-    if args.checkpoint_dir:
-        raise NotImplementedError("--checkpoint-dir: not yet ported "
-                                  "(pass --params <file.npz>)")
     device = resolve_device(args.device)
     cfg = get_config(args.config)
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
-    model = build_model(cfg, device, args.params)
+    model = build_model(cfg, device, args.params,
+                        checkpoint_dir=args.checkpoint_dir)
 
     if args.serve:
         if not args.layered:

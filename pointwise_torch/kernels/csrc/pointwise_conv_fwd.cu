@@ -40,14 +40,8 @@
 // (wgmma) for the product, more warps per SM and a cell-sorted
 // aggregation are later work.
 //
-// Exactness of the cell code (_pairwise_code :140-168): rel = cand - center
-// in f32; d2 = rx*rx + ry*ry + rz*rz summed in that order; valid iff
-// d2 <= r*r; c = min(floor((rel + r) * inv), 2) per axis; code =
-// (cx*3 + cy)*3 + cz.  The geometry uses __fmul_rn / __fadd_rn / __fsub_rn
-// so nvcc cannot contract d2 into FMAs, which would move pairs at exactly
-// distance r (and on cell faces) into other cells or out of the ball.
-// Like the TPU kernel there is no lower clamp: a valid pair whose code
-// falls outside [0, 27) matches no cell.
+// The cell code, the walk and the product are shared with the dW and dX
+// kernels (pointwise_conv_common.cuh, which states the exactness rules).
 //
 // bf16 mode (feats and w in bf16): features are already rounded, cell sums
 // and counts stay f32, the means are divided in f32 and then rounded to
@@ -56,34 +50,11 @@
 // The C entry point checks the launch with cudaGetLastError and returns the
 // code; the Python wrapper raises on anything but 0.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "pointwise_conv_common.cuh"
 
 namespace {
 
-constexpr int N_CELLS = 27;
-constexpr int TILE = 64;      // candidate tile and center-list row tile
-constexpr int CPB = 8;        // centers per block, one warp each
-constexpr int THREADS = CPB * 32;
-constexpr int HALF = THREADS / 2;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ float round_like(float v);
-template <>
-__device__ __forceinline__ float round_like<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float round_like<__nv_bfloat16>(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-__device__ __forceinline__ int axis_cell(float rel, float radius, float inv) {
-  return (int)fminf(floorf(__fmul_rn(__fadd_rn(rel, radius), inv)), 2.0f);
-}
+using namespace pw;
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
@@ -107,65 +78,8 @@ pw_fwd_kernel(const float* __restrict__ ctr,   // (B, Ncp, 3)
 
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * CPB;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_cols = Mp / TILE;
-  const int n_rows = Ncp / TILE;
-  const int row = c0 / TILE;
-
-  for (int i = threadIdx.x; i < CPB * (K + N_CELLS); i += THREADS) smem[i] = 0.f;
-
-  const float* cp = ctr + ((size_t)b * Ncp + c0 + warp) * 3;
-  const float px = cp[0], py = cp[1], pz = cp[2];
-  const float r2 = __fmul_rn(radius, radius);
-  float* my_sums = sums + warp * K;
-  float* my_cnt = cnts + warp * N_CELLS;
-
-  const int* list = nullptr;
-  int n_walk = n_cols;
-  if (tile_idx != nullptr) {
-    const int beg = tile_ptr[b * n_rows + row];
-    list = tile_idx + beg;
-    n_walk = tile_ptr[b * n_rows + row + 1] - beg;
-  }
-  const float* pb = pts + (size_t)b * Mp * 3;
-  const T* fb = feats + (size_t)b * Mp * cin;
-
-  for (int t = 0; t < n_walk; ++t) {
-    const int jt = list != nullptr ? list[t] : t;
-    __syncthreads();   // zeroing done / previous tile consumed
-    for (int i = threadIdx.x; i < TILE * 3; i += THREADS)
-      cxyz[i] = pb[(size_t)jt * TILE * 3 + i];
-    const T* fsrc = fb + (size_t)jt * TILE * cin;
-    for (int i = threadIdx.x; i < TILE * cin; i += THREADS) cf[i] = fsrc[i];
-    __syncthreads();
-#pragma unroll
-    for (int j0 = 0; j0 < TILE; j0 += 32) {
-      const int j = j0 + lane;
-      const float rx = __fsub_rn(cxyz[j * 3 + 0], px);
-      const float ry = __fsub_rn(cxyz[j * 3 + 1], py);
-      const float rz = __fsub_rn(cxyz[j * 3 + 2], pz);
-      float d2 = __fmul_rn(rx, rx);
-      d2 = __fadd_rn(d2, __fmul_rn(ry, ry));
-      d2 = __fadd_rn(d2, __fmul_rn(rz, rz));
-      int code = N_CELLS;
-      if (d2 <= r2) {   // |rel| <= r(1+eps): the int casts below are safe
-        code = (axis_cell(rx, radius, inv) * 3 + axis_cell(ry, radius, inv)) * 3
-               + axis_cell(rz, radius, inv);
-      }
-      unsigned m = __ballot_sync(0xffffffffu, code >= 0 && code < N_CELLS);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const int k = __shfl_sync(0xffffffffu, code, src);
-        const T* frow = cf + (j0 + src) * cin;
-        float* srow = my_sums + k * cin;
-        for (int c = lane; c < cin; c += 32) srow[c] += to_f32(frow[c]);
-        if (lane == 0) my_cnt[k] += 1.f;
-      }
-    }
-  }
-  __syncthreads();
+  cell_sums<T>(ctr, pts, feats, tile_ptr, tile_idx, b, c0, Ncp, Mp, cin, radius, inv,
+               sums, cnts, cxyz, cf);
 
   // means per cell (rounded to the matmul type), counts out
   for (int i = threadIdx.x; i < CPB * K; i += THREADS) {
@@ -177,36 +91,8 @@ pw_fwd_kernel(const float* __restrict__ ctr,   // (B, Ncp, 3)
     cnt_out[((size_t)b * Ncp + c0) * N_CELLS + i] = cnts[i];
   __syncthreads();
 
-  // product: thread -> (column o, half h of the 27*cin reduction)
-  const int h = threadIdx.x / HALF;
-  const int kbeg = h == 0 ? 0 : K / 2;
-  const int kend = h == 0 ? K / 2 : K;
-  for (int o0 = 0; o0 < cout; o0 += HALF) {
-    const int oo = threadIdx.x % HALF;
-    const int o = o0 + oo;
-    float acc[CPB];
-#pragma unroll
-    for (int i = 0; i < CPB; ++i) acc[i] = 0.f;
-    if (o < cout) {
-      for (int kc = kbeg; kc < kend; ++kc) {
-        const float wv = to_f32(w[(size_t)kc * cout + o]);
-#pragma unroll
-        for (int i = 0; i < CPB; ++i) acc[i] = fmaf(sums[i * K + kc], wv, acc[i]);
-      }
-    }
-    if (h == 1) {
-#pragma unroll
-      for (int i = 0; i < CPB; ++i) part[i * HALF + oo] = acc[i];
-    }
-    __syncthreads();
-    if (h == 0 && o < cout) {
-      const float bo = bias[o];
-#pragma unroll
-      for (int i = 0; i < CPB; ++i)
-        y[((size_t)b * Ncp + c0 + i) * cout + o] = (acc[i] + part[i * HALF + oo]) + bo;
-    }
-    __syncthreads();
-  }
+  block_product<T>(sums, w, bias, y + ((size_t)b * Ncp + c0) * cout, cout, K, cout,
+                   part);
 }
 
 template <typename T>

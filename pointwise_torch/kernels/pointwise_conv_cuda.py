@@ -1,32 +1,44 @@
-"""Forward pointwise-conv kernel for Hopper: build, binding, plain version.
+"""Pointwise-conv kernels for Hopper: build, bindings, plain versions.
 
-``conv_fwd`` is the kernel's wrapper.  On a CUDA tensor it launches the
-hand-written kernel in ``csrc/pointwise_conv_fwd.cu`` (built with ``nvcc``
-for ``sm_90a`` at first use into ``kernels/_build/``, ignored by git, and
-bound through ctypes); on a CPU tensor it runs ``conv_fwd_plain``, the plain
-PyTorch version of the same contract.  A CUDA call never falls back to the
-plain version: a build or launch failure raises.
+Three kernels, one wrapper each; on a CUDA tensor a wrapper launches its
+hand-written kernel (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at
+first use into ``kernels/_build/``, ignored by git, and bound through
+ctypes); on a CPU tensor it runs the plain PyTorch version of the same
+contract.  A CUDA call never falls back to the plain version: a build or
+launch failure raises.
 
-The kernel replaces the forward Pallas kernels ``_fwd_kernel_resident``,
-``_fwd_kernel`` and ``_fwd_kernel_csr`` of
-pointwise_tpu/kernels/pointwise_conv_pallas.py (see the note at the top of
-the CUDA source).  It walks, for each center tile of ``TILE`` centers, a
-list of candidate tiles of ``TILE`` points: every tile (the dense walk,
+  conv_fwd / conv_fwd_plain  forward (csrc/pointwise_conv_fwd.cu), replacing
+      ``_fwd_kernel_resident``, ``_fwd_kernel`` and ``_fwd_kernel_csr``;
+  conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
+      replacing the ``_dw_kernel*`` family;
+  conv_dx / conv_dx_plain    feature gradient (csrc/pointwise_conv_dx.cu),
+      replacing the ``_dx_kernel*`` family
+of pointwise_tpu/kernels/pointwise_conv_pallas.py (see the notes at the top
+of each CUDA source).  Each walks, for each row tile of ``TILE`` points, a
+list of ``TILE``-point tiles of the other side: every tile (the dense walk,
 ``tile_ptr=tile_idx=None``) or the bbox-adjacent ones from
-``tile_adjacency`` (the CSR walk).  ``LAUNCHES`` counts the launches of each walk mode.
+``tile_adjacency`` (the CSR walk).  ``LAUNCHES`` counts the launches of each
+kernel and walk mode.
 
-Shared contract of ``conv_fwd`` and ``conv_fwd_plain`` (all padded by the op
-layer, ops/pointwise_conv.py):
+Shared contract (all padded by the op layer, ops/pointwise_conv.py):
   ctr   (B, Ncp, 3) f32  centers; padding and masked centers at -SENTINEL
   pts   (B, Mp, 3)  f32  candidates; padding and masked ones at +SENTINEL
   feats (B, Mp, Cin) f32 or bf16 (the matmul type)
   w     (27, Cin, Cout)  same dtype as feats
   bias  (Cout,) f32
+  g     (B, Ncp, Cout) f32, the gradient of y
+  cnt   (B, Ncp, 27) f32, the forward's per-cell neighbor counts
   tile_ptr (B*Ncp/TILE + 1,) int32 and tile_idx (nnz,) int32, or None: the
         CSR walk's compact list; center tile (b, row) walks the candidate
-        tiles tile_idx[tile_ptr[b*Ncp/TILE + row] : tile_ptr[... + 1]]
-Returns y (B, Ncp, Cout) f32 and the per-cell neighbor counts
-(B, Ncp, 27) f32.  Ncp and Mp are multiples of TILE.
+        tiles tile_idx[tile_ptr[b*Ncp/TILE + row] : tile_ptr[... + 1]].
+        conv_dx walks the transposed list (candidate tile -> center tiles,
+        ``tile_adjacency(pts, ctr, radius)``), of length B*Mp/TILE + 1.
+conv_fwd returns y (B, Ncp, Cout) f32 and cnt; conv_dw returns dW
+(27, Cin, Cout) f32; conv_dx returns dX (B, Mp, Cin) f32.  Ncp and Mp are
+multiples of TILE.  Rounding in bf16 mode follows the TPU op (its
+``_pw_bwd``): g is rounded to bf16 before both products, the means as in the
+forward, 1/max(cnt, 1) and the per-cell gradient sums Z before the dX
+product; every product accumulates in f32.
 """
 
 from __future__ import annotations
@@ -55,13 +67,16 @@ _MAX_SMEM = 232_448    # dynamic shared memory one block may use on sm_90
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _BUILD_DIR = os.path.join(_DIR, "_build")
-_SOURCES = ("pointwise_conv_fwd.cu",)
+_SOURCES = ("pointwise_conv_fwd.cu", "pointwise_conv_dw.cu",
+            "pointwise_conv_dx.cu")
+_HEADERS = ("pointwise_conv_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
-LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0}
+LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "dw_dense": 0, "dw_csr": 0,
+            "dx_dense": 0, "dx_csr": 0}
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
 # compiler's resource report (registers, shared memory, spills).
@@ -92,8 +107,9 @@ def _nvcc() -> str:
 
 def _so_path(src: str) -> str:
     h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
-    with open(os.path.join(_CSRC, src), "rb") as f:
-        h.update(f.read())
+    for name in (src, *_HEADERS):
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
     stem = os.path.splitext(src)[0]
     return os.path.join(_BUILD_DIR, f"{stem}-{h.hexdigest()[:12]}.so")
 
@@ -137,22 +153,35 @@ def build_libraries() -> dict:
         if not logs and os.path.exists(so + ".log"):
             with open(so + ".log") as f:
                 logs.append(f.read())
-        _libs[os.path.splitext(src)[0]] = _bind(ctypes.CDLL(so))
+        stem = os.path.splitext(src)[0]
+        _libs[stem] = _bind(stem, ctypes.CDLL(so))
     LIBRARY["loads"] += 1
     LIBRARY["seconds"] += time.perf_counter() - t0
     LIBRARY["ptxas"] = "".join(logs)
     return _libs
 
 
-def _bind(lib):
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.pw_conv_fwd.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
-    lib.pw_conv_fwd.restype = ci
-    lib.pw_conv_smem_bytes.argtypes = [ci, ci]
-    lib.pw_conv_smem_bytes.restype = ctypes.c_longlong
-    lib.pw_conv_tile.restype = ci
-    if lib.pw_conv_tile() != TILE:
-        raise RuntimeError(f"kernel TILE {lib.pw_conv_tile()} != {TILE}")
+def _bind(stem: str, lib):
+    vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_longlong)
+    if stem == "pointwise_conv_fwd":
+        lib.pw_conv_fwd.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
+        lib.pw_conv_fwd.restype = ci
+        lib.pw_conv_smem_bytes.argtypes = [ci, ci]
+        lib.pw_conv_smem_bytes.restype = ll
+        lib.pw_conv_tile.restype = ci
+        if lib.pw_conv_tile() != TILE:
+            raise RuntimeError(f"kernel TILE {lib.pw_conv_tile()} != {TILE}")
+    elif stem == "pointwise_conv_dw":
+        lib.pw_conv_dw.argtypes = [vp] * 10 + [ci] * 7 + [cf, cf, ci, vp]
+        lib.pw_conv_dw.restype = ci
+        lib.pw_dw_smem_bytes.argtypes = [ci, ci]
+        lib.pw_dw_smem_bytes.restype = ll
+    else:
+        lib.pw_conv_dx.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, ci, vp]
+        lib.pw_conv_dx.restype = ci
+        lib.pw_dx_smem_bytes.argtypes = [ci]
+        lib.pw_dx_smem_bytes.restype = ll
     return lib
 
 
@@ -160,39 +189,104 @@ def _inv_cell(radius: float) -> float:
     return float(np.float32(3.0 / (2.0 * radius)))
 
 
-def _check(ctr, pts, feats, w, bias, tile_ptr, tile_idx):
+def _check_walk(ctr, pts, tile_ptr, tile_idx, rows: str = "ctr"):
+    """Coordinates and the tile list; ``rows`` names the side whose tiles
+    the list is indexed by ("ctr": forward and dW, "pts": dX)."""
     B, Ncp, _ = ctr.shape
     Mp = pts.shape[1]
-    cin, cout = w.shape[1], w.shape[2]
     if ctr.shape != (B, Ncp, 3) or pts.shape != (B, Mp, 3):
         raise ValueError(f"ctr/pts must be (B, N, 3), got {tuple(ctr.shape)} "
                          f"and {tuple(pts.shape)}")
     if Ncp % TILE or Mp % TILE:
         raise ValueError(f"Ncp={Ncp} and Mp={Mp} must be multiples of {TILE}")
-    if feats.shape != (B, Mp, cin) or w.shape != (N_CELLS, cin, cout):
-        raise ValueError(f"feats {tuple(feats.shape)} / w {tuple(w.shape)} "
-                         f"do not match (B={B}, Mp={Mp}, 27, Cin, Cout)")
-    if bias.shape != (cout,):
-        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
-    if ctr.dtype != torch.float32 or pts.dtype != torch.float32 \
-            or bias.dtype != torch.float32:
-        raise TypeError("ctr, pts and bias must be float32")
-    if feats.dtype not in (torch.float32, torch.bfloat16) \
-            or w.dtype != feats.dtype:
-        raise TypeError(f"feats and w must share float32 or bfloat16, got "
-                        f"{feats.dtype} and {w.dtype}")
+    if ctr.dtype != torch.float32 or pts.dtype != torch.float32:
+        raise TypeError("ctr and pts must be float32")
     if (tile_ptr is None) != (tile_idx is None):
         raise ValueError("pass tile_ptr and tile_idx together (or neither: "
                          "dense walk)")
     if tile_ptr is not None:
-        nR, nC = Ncp // TILE, Mp // TILE
+        nR, nC = (Ncp // TILE, Mp // TILE) if rows == "ctr" else (
+            Mp // TILE, Ncp // TILE)
         if tile_ptr.shape != (B * nR + 1,) or tile_idx.ndim != 1 \
                 or tile_idx.numel() > B * nR * nC \
                 or tile_ptr.dtype != torch.int32 \
                 or tile_idx.dtype != torch.int32:
             raise ValueError(f"tile_ptr must be int32 ({B * nR + 1},) and "
                              f"tile_idx int32 (at most {B * nR * nC},)")
+    return B, Ncp, Mp
+
+
+def _check_grad_inputs(g, cnt, B, Ncp):
+    if g.ndim != 3 or g.shape[:2] != (B, Ncp) or g.dtype != torch.float32:
+        raise ValueError(f"g must be float32 (B={B}, Ncp={Ncp}, Cout), got "
+                         f"{g.dtype} {tuple(g.shape)}")
+    if cnt.shape != (B, Ncp, N_CELLS) or cnt.dtype != torch.float32:
+        raise ValueError(f"cnt must be float32 ({B}, {Ncp}, 27), got "
+                         f"{cnt.dtype} {tuple(cnt.shape)}")
+
+
+def _check(ctr, pts, feats, w, bias, tile_ptr, tile_idx):
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    cin, cout = w.shape[1], w.shape[2]
+    if feats.shape != (B, Mp, cin) or w.shape != (N_CELLS, cin, cout):
+        raise ValueError(f"feats {tuple(feats.shape)} / w {tuple(w.shape)} "
+                         f"do not match (B={B}, Mp={Mp}, 27, Cin, Cout)")
+    if bias.shape != (cout,):
+        raise ValueError(f"bias must be ({cout},), got {tuple(bias.shape)}")
+    if bias.dtype != torch.float32:
+        raise TypeError(f"bias must be float32, got {bias.dtype}")
+    if feats.dtype not in (torch.float32, torch.bfloat16) \
+            or w.dtype != feats.dtype:
+        raise TypeError(f"feats and w must share float32 or bfloat16, got "
+                        f"{feats.dtype} and {w.dtype}")
     return B, Ncp, Mp, cin, cout
+
+
+def _check_dw(ctr, pts, feats, g, cnt, tile_ptr, tile_idx):
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    _check_grad_inputs(g, cnt, B, Ncp)
+    if feats.ndim != 3 or feats.shape[:2] != (B, Mp) \
+            or feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feats must be float32 or bfloat16 (B={B}, Mp={Mp}, "
+                         f"Cin), got {feats.dtype} {tuple(feats.shape)}")
+    return B, Ncp, Mp, feats.shape[2], g.shape[2]
+
+
+def _check_dx(ctr, pts, g, cnt, w, tile_ptr, tile_idx):
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx, rows="pts")
+    _check_grad_inputs(g, cnt, B, Ncp)
+    cin, cout = w.shape[1], w.shape[2]
+    if w.shape != (N_CELLS, cin, cout) or g.shape[2] != cout:
+        raise ValueError(f"w {tuple(w.shape)} does not match g "
+                         f"{tuple(g.shape)}: (27, Cin, Cout)")
+    if w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"w must be float32 or bfloat16, got {w.dtype}")
+    return B, Ncp, Mp, cin, cout
+
+
+def _check_device(tensors, dev):
+    for t in tensors:
+        if t is None:
+            continue
+        if t.device != dev:
+            raise ValueError(f"all inputs must be on {dev}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("all inputs must be contiguous")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _smem(need, what):
+    if need > _MAX_SMEM:
+        raise ValueError(f"{what} needs {need} B of shared memory per block "
+                         f"(limit {_MAX_SMEM})")
 
 
 def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
@@ -206,36 +300,153 @@ def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
         raise ValueError(f"unsupported device {ctr.device}")
     B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
                                    tile_idx)
-    tensors = [ctr, pts, feats, w, bias] + (
-        [] if tile_ptr is None else [tile_ptr, tile_idx])
-    for t in tensors:
-        if t.device != ctr.device:
-            raise ValueError(f"all inputs must be on {ctr.device}, got "
-                             f"{t.device}")
-        if not t.is_contiguous():
-            raise ValueError("all inputs must be contiguous")
+    _check_device([ctr, pts, feats, w, bias, tile_ptr, tile_idx], ctr.device)
     lib = build_libraries()["pointwise_conv_fwd"]
     bf16 = int(feats.dtype == torch.bfloat16)
-    smem = lib.pw_conv_smem_bytes(cin, bf16)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"Cin={cin} needs {smem} B of shared memory per "
-                         f"block (limit {_MAX_SMEM})")
+    _smem(lib.pw_conv_smem_bytes(cin, bf16), f"Cin={cin}")
     y = torch.empty((B, Ncp, cout), dtype=torch.float32, device=ctr.device)
     cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32,
                       device=ctr.device)
     with torch.cuda.device(ctr.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.pw_conv_fwd(
+        _launch("pw_conv_fwd", lib.pw_conv_fwd(
             ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), w.data_ptr(),
-            bias.data_ptr(),
-            None if tile_ptr is None else tile_ptr.data_ptr(),
-            None if tile_idx is None else tile_idx.data_ptr(), y.data_ptr(),
+            bias.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), y.data_ptr(),
             cnt.data_ptr(), B, Ncp, Mp, cin, cout, float(radius),
-            _inv_cell(radius), bf16, stream)
-    if err != 0:
-        raise RuntimeError(f"pw_conv_fwd launch failed: cudaError {err}")
+            _inv_cell(radius), bf16, stream))
     LAUNCHES["fwd_dense" if tile_ptr is None else "fwd_csr"] += 1
     return y, cnt
+
+
+def _dw_splits(n_rows: int, k: int, cout: int, target_blocks: int = 528):
+    """(splits, chunk) of the dW product's center reduction: enough slices
+    that about ``target_blocks`` (four per SM of an H100) blocks run, each
+    slice a multiple of 32 centers and at least 256 of them."""
+    tiles = -(-k // 64) * -(-cout // 64)
+    splits = max(1, min(-(-target_blocks // tiles), n_rows // 256))
+    chunk = round_up(-(-n_rows // splits), 32)
+    return -(-n_rows // chunk), chunk
+
+
+def conv_dw(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
+            tile_idx=None):
+    """Weight gradient dW (27, Cin, Cout) f32 of the forward with these
+    inputs and the forward's counts ``cnt`` (see the module docstring).
+    Launches the CUDA kernels on CUDA tensors, runs ``conv_dw_plain`` on
+    CPU tensors."""
+    if ctr.device.type == "cpu":
+        return conv_dw_plain(ctr, pts, feats, g, cnt, radius, tile_ptr,
+                             tile_idx)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"unsupported device {ctr.device}")
+    B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
+                                      tile_idx)
+    _check_device([ctr, pts, feats, g, cnt, tile_ptr, tile_idx], ctr.device)
+    lib = build_libraries()["pointwise_conv_dw"]
+    bf16 = int(feats.dtype == torch.bfloat16)
+    _smem(lib.pw_dw_smem_bytes(cin, bf16), f"Cin={cin}")
+    dev = ctr.device
+    k = N_CELLS * cin
+    splits, chunk = _dw_splits(B * Ncp, k, cout)
+    # workspaces: the rounded cell means and the product's partial sums
+    xbar = torch.empty((B * Ncp, k), dtype=feats.dtype, device=dev)
+    part = (torch.empty((splits, k, cout), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    dw = torch.empty((N_CELLS, cin, cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_dw", lib.pw_conv_dw(
+            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), g.data_ptr(),
+            cnt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), xbar.data_ptr(),
+            _ptr(part), dw.data_ptr(), B, Ncp, Mp, cin, cout, splits, chunk,
+            float(radius), _inv_cell(radius), bf16, stream))
+    LAUNCHES["dw_dense" if tile_ptr is None else "dw_csr"] += 1
+    return dw
+
+
+def conv_dx(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
+            tile_idx=None):
+    """Feature gradient dX (B, Mp, Cin) f32 (see the module docstring);
+    ``tile_ptr``/``tile_idx`` is the transposed list, candidate tile ->
+    center tiles.  Launches the CUDA kernel on CUDA tensors, runs
+    ``conv_dx_plain`` on CPU tensors."""
+    if ctr.device.type == "cpu":
+        return conv_dx_plain(ctr, pts, g, cnt, w, radius, tile_ptr, tile_idx)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"unsupported device {ctr.device}")
+    B, Ncp, Mp, cin, cout = _check_dx(ctr, pts, g, cnt, w, tile_ptr,
+                                      tile_idx)
+    _check_device([ctr, pts, g, cnt, w, tile_ptr, tile_idx], ctr.device)
+    lib = build_libraries()["pointwise_conv_dx"]
+    _smem(lib.pw_dx_smem_bytes(cout), f"Cout={cout}")
+    wt = w.transpose(1, 2).contiguous()           # (27, Cout, Cin)
+    dx = torch.empty((B, Mp, cin), dtype=torch.float32, device=ctr.device)
+    with torch.cuda.device(ctr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_dx", lib.pw_conv_dx(
+            ctr.data_ptr(), pts.data_ptr(), g.data_ptr(), cnt.data_ptr(),
+            wt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), dx.data_ptr(), B,
+            Ncp, Mp, cin, cout, float(radius), _inv_cell(radius),
+            int(w.dtype == torch.bfloat16), stream))
+    LAUNCHES["dx_dense" if tile_ptr is None else "dx_csr"] += 1
+    return dx
+
+
+# ---- plain versions (the CPU path and the card's yardstick) -------------
+
+
+def _walk(tile_ptr, tile_idx, B, n_rows, n_cols, dev):
+    """(b, row, listed column tiles) for every row tile that lists any."""
+    all_tiles = torch.arange(n_cols, device=dev)
+    ptr_h = None if tile_ptr is None else tile_ptr.cpu().tolist()
+    for b in range(B):
+        for row in range(n_rows):
+            if tile_ptr is None:
+                tiles = all_tiles
+            else:
+                i = b * n_rows + row
+                tiles = tile_idx[ptr_h[i]:ptr_h[i + 1]].long()
+            if tiles.numel():
+                yield b, row, tiles
+
+
+def _pair_codes(rel, radius: float):
+    """Cell codes of candidate - center offsets ``rel`` (..., 3) and the
+    in-ball mask, in the kernels' order of f32 operations."""
+    r = torch.tensor(radius, dtype=torch.float32)
+    inv = torch.tensor(_inv_cell(radius), dtype=torch.float32)
+    d2 = (rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
+          + rel[..., 2] * rel[..., 2])
+    ax = torch.clamp_max(torch.floor((rel + r) * inv), 2.0)
+    code = (ax[..., 0] * 3.0 + ax[..., 1]) * 3.0 + ax[..., 2]
+    return code, (d2 <= r * r) & (code >= 0) & (code < N_CELLS)
+
+
+def _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx):
+    """The forward's walk: f32 cell sums (B, Ncp, 27, Cin) and counts
+    (B, Ncp, 27), one center tile at a time over the candidates of its
+    listed tiles (memory bounded by one tile's pairs)."""
+    B, Ncp, _ = ctr.shape
+    Mp, cin = pts.shape[1], feats.shape[2]
+    dev = ctr.device
+    x = feats.float()
+    sums = torch.zeros((B, Ncp, N_CELLS, cin), dtype=torch.float32,
+                       device=dev)
+    cnt = torch.zeros((B, Ncp, N_CELLS), dtype=torch.float32, device=dev)
+    lane = torch.arange(TILE, device=dev)
+    for b, row, tiles in _walk(tile_ptr, tile_idx, B, Ncp // TILE,
+                               Mp // TILE, dev):
+        cidx = (tiles[:, None] * TILE + lane[None, :]).reshape(-1)
+        c = ctr[b, row * TILE:(row + 1) * TILE]            # (TILE, 3)
+        code, ok = _pair_codes(pts[b, cidx][None, :, :] - c[:, None, :],
+                               radius)                     # (TILE, n)
+        ii, jj = torch.nonzero(ok, as_tuple=True)
+        slot = ii * N_CELLS + code[ii, jj].long()
+        s = sums[b, row * TILE:(row + 1) * TILE].view(-1, cin)
+        s.index_add_(0, slot, x[b, cidx[jj]])
+        cnt[b, row * TILE:(row + 1) * TILE].view(-1).index_add_(
+            0, slot, torch.ones_like(slot, dtype=torch.float32))
+    return sums, cnt
 
 
 def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
@@ -243,50 +454,59 @@ def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
     """Plain PyTorch version of ``conv_fwd``: the same padded inputs, the
     same tile list and the same rounding points (features in the matmul
     type, f32 cell sums and counts, means divided in f32 and rounded to the
-    matmul type, f32 product, f32 bias).  Walks one center tile at a time
-    over the candidates of its listed tiles, so memory stays bounded by one
-    tile's pairs whatever the number of points."""
+    matmul type, f32 product, f32 bias)."""
     B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
                                    tile_idx)
-    dev = ctr.device
-    r = torch.tensor(radius, dtype=torch.float32)
-    inv = torch.tensor(_inv_cell(radius), dtype=torch.float32)
-    r2 = r * r
-    x = feats.float()
-    sums = torch.zeros((B, Ncp, N_CELLS, cin), dtype=torch.float32,
-                       device=dev)
-    cnt = torch.zeros((B, Ncp, N_CELLS), dtype=torch.float32, device=dev)
-    lane = torch.arange(TILE, device=dev)
-    all_tiles = torch.arange(Mp // TILE, device=dev)
-    ptr_h = None if tile_ptr is None else tile_ptr.cpu().tolist()
-    for b in range(B):
-        for row in range(Ncp // TILE):
-            if tile_ptr is None:
-                tiles = all_tiles
-            else:
-                i = b * (Ncp // TILE) + row
-                tiles = tile_idx[ptr_h[i]:ptr_h[i + 1]].long()
-            if tiles.numel() == 0:
-                continue
-            cidx = (tiles[:, None] * TILE + lane[None, :]).reshape(-1)
-            c = ctr[b, row * TILE:(row + 1) * TILE]            # (TILE, 3)
-            rel = pts[b, cidx][None, :, :] - c[:, None, :]     # (TILE, n, 3)
-            d2 = (rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
-                  + rel[..., 2] * rel[..., 2])
-            ax = torch.clamp_max(torch.floor((rel + r) * inv), 2.0)
-            code = (ax[..., 0] * 3.0 + ax[..., 1]) * 3.0 + ax[..., 2]
-            ok = (d2 <= r2) & (code >= 0) & (code < N_CELLS)
-            ii, jj = torch.nonzero(ok, as_tuple=True)
-            slot = ii * N_CELLS + code[ii, jj].long()
-            s = sums[b, row * TILE:(row + 1) * TILE].view(-1, cin)
-            s.index_add_(0, slot, x[b, cidx[jj]])
-            cnt[b, row * TILE:(row + 1) * TILE].view(-1).index_add_(
-                0, slot, torch.ones_like(slot, dtype=torch.float32))
+    sums, cnt = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
     xbar = sums / torch.clamp_min(cnt, 1.0)[..., None]
     xbar = xbar.to(feats.dtype).float()
     y = xbar.reshape(B, Ncp, N_CELLS * cin) @ w.float().reshape(
         N_CELLS * cin, cout)
     return y + bias, cnt
+
+
+def conv_dw_plain(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
+                  tile_idx=None):
+    """Plain PyTorch version of ``conv_dw``: the forward's cell sums divided
+    by the forward's counts and rounded to the matmul type, g rounded to the
+    matmul type, and their f32 product over all centers."""
+    B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
+                                      tile_idx)
+    sums, _ = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
+    xbar = (sums / torch.clamp_min(cnt, 1.0)[..., None]).to(feats.dtype)
+    gm = g.to(feats.dtype).float()
+    dw = xbar.float().reshape(B * Ncp, N_CELLS * cin).T @ gm.reshape(
+        B * Ncp, cout)
+    return dw.reshape(N_CELLS, cin, cout)
+
+
+def conv_dx_plain(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
+                  tile_idx=None):
+    """Plain PyTorch version of ``conv_dx``: for each candidate tile, the
+    centers of its listed center tiles; Z[j, k] sums round(1/max(cnt, 1)) *
+    round(g_i) over the in-ball centers i of cell k (codes from candidate -
+    center, as the forward's), then round(Z) . W^T in f32."""
+    B, Ncp, Mp, cin, cout = _check_dx(ctr, pts, g, cnt, w, tile_ptr,
+                                      tile_idx)
+    dev, mm = ctr.device, w.dtype
+    gm = g.to(mm).float()
+    inv_cnt = (1.0 / torch.clamp_min(cnt, 1.0)).to(mm).float()
+    z = torch.zeros((B, Mp, N_CELLS, cout), dtype=torch.float32, device=dev)
+    lane = torch.arange(TILE, device=dev)
+    for b, row, tiles in _walk(tile_ptr, tile_idx, B, Mp // TILE,
+                               Ncp // TILE, dev):
+        cidx = (tiles[:, None] * TILE + lane[None, :]).reshape(-1)
+        q = pts[b, row * TILE:(row + 1) * TILE]            # (TILE, 3)
+        code, ok = _pair_codes(q[:, None, :] - ctr[b, cidx][None, :, :],
+                               radius)                     # (TILE, n)
+        ii, jj = torch.nonzero(ok, as_tuple=True)
+        k = code[ii, jj].long()
+        ci = cidx[jj]
+        zt = z[b, row * TILE:(row + 1) * TILE].view(-1, cout)
+        zt.index_add_(0, ii * N_CELLS + k,
+                      inv_cnt[b, ci, k][:, None] * gm[b, ci])
+    zr = z.to(mm).float().reshape(B, Mp, N_CELLS * cout)
+    return zr @ w.float().transpose(1, 2).reshape(N_CELLS * cout, cin)
 
 
 # ---- tile-bbox adjacency (plain tensor code, not a kernel) ---------------
@@ -339,7 +559,9 @@ def _boxes_adjacency(radius: float, lo_r, hi_r, lo_c, hi_c,
 
 def tile_adjacency(ctr, pts, radius: float):
     """Center-tile -> candidate-tile lists (tile_ptr, tile_idx) for the CSR
-    walk of ``conv_fwd``."""
+    walk of ``conv_fwd`` and ``conv_dw``.  The bbox test is symmetric, so
+    ``tile_adjacency(pts, ctr, radius)`` is the transposed list (candidate
+    tile -> center tiles) that ``conv_dx`` walks."""
     lo_r, hi_r = _row_tile_boxes(ctr, TILE)
     lo_c, hi_c = _row_tile_boxes(pts, TILE)
     return _boxes_adjacency(radius, lo_r, hi_r, lo_c, hi_c)

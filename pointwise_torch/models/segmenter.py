@@ -123,3 +123,17 @@ class PointwiseSegmenter(nn.Module):
             pts_cur = ctr
         h = torch.cat(skip_feats, dim=-1)
         return self._head(h, prefix_mask(len(self.blocks), lengths[-1]))
+
+
+def segmentation_loss(logits, labels, mask=None):
+    """Masked per-point softmax cross-entropy and accuracy (the JAX
+    package's ``segmentation_loss``).  logits (B, N, K); labels (B, N) int;
+    mask (B, N) or None.  Returns (loss, accuracy), f32 scalars."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    correct = (logits.argmax(-1) == labels).float()
+    if mask is None:
+        return -ll.mean(), correct.mean()
+    m = mask.float()
+    denom = torch.clamp_min(m.sum(), 1.0)
+    return -(ll * m).sum() / denom, (correct * m).sum() / denom

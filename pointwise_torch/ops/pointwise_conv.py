@@ -1,6 +1,7 @@
-"""Public pointwise-convolution op: padding, layout, dispatch.
+"""Public pointwise-convolution op: padding, layout, dispatch, gradient.
 
-A port of the forward half of pointwise_tpu/ops/pointwise_conv.py.  The
+A port of pointwise_tpu/ops/pointwise_conv.py and of the custom VJP of
+``pointwise_conv_pallas`` (kernels/pointwise_conv_pallas.py there).  The
 wrapper turns the user-facing irregular problem into the padded layout the
 kernel wants:
   * centers and candidates are padded to multiples of the kernel's tile
@@ -12,9 +13,18 @@ kernel wants:
     like the reference;
   * features and weights travel in the matmul type (``precision``).
 
-Dispatch: ``impl='auto'`` runs the Hopper kernel for CUDA tensors and its
-plain PyTorch version for CPU tensors (kernels/pointwise_conv_cuda.py);
+Dispatch: ``impl='auto'`` runs the Hopper kernels for CUDA tensors and
+their plain PyTorch versions for CPU tensors (kernels/pointwise_conv_cuda.py);
 ``impl='reference'`` runs the dense executable spec (ops/reference.py).
+
+Gradient: ``PointwiseConvFunction``, a ``torch.autograd.Function`` whose
+forward is ``conv_fwd`` and whose backward is ``conv_dw`` (weights),
+``conv_dx`` (features, skipped when they need no gradient) and ``g.sum``
+(bias), on either device.  It rounds where the TPU op's ``_pw_bwd`` does:
+it takes the f32 weights and casts them to the matmul type inside, so dW is
+the f32 gradient of the f32 weights; dX comes back in the features' matmul
+type, which the caller casts from outside the Function (as the JAX op casts
+the features outside its custom VJP).
 """
 
 from __future__ import annotations
@@ -26,6 +36,8 @@ from pointwise_torch.kernels.pointwise_conv_cuda import (
     SENTINEL,
     TILE,
     _SENTINEL_CUT,
+    conv_dw,
+    conv_dx,
     conv_fwd,
     round_up,
     tile_adjacency,
@@ -107,7 +119,7 @@ def conv_layout(points, features, weights, bias=None, *, radius,
 
     The kwargs are ctr, pts, feats, w, bias, radius, tile_ptr, tile_idx —
     the contract of kernels.pointwise_conv_cuda.conv_fwd (tile_ptr/tile_idx
-    None for the dense walk)."""
+    None for the dense walk; feats and w in the matmul type)."""
     Cin = features.shape[-1]
     Cout = weights.shape[-1]
     if weights.shape != (N_CELLS, Cin, Cout):
@@ -130,6 +142,46 @@ def conv_layout(points, features, weights, bias=None, *, radius,
               w=weights.to(mm).contiguous(), bias=b.contiguous(),
               radius=float(radius), tile_ptr=tile_ptr, tile_idx=tile_idx)
     return kw, (batched, Nc, center_mask)
+
+
+class PointwiseConvFunction(torch.autograd.Function):
+    """conv_fwd with the TPU op's gradient (its ``_pw_bwd``).
+
+    apply(feats, weights, bias, ctr, pts, radius, tile_ptr, tile_idx) ->
+    (y, cnt): ``feats`` padded in the matmul type, ``weights`` (27, Cin,
+    Cout) in any float type (cast to the matmul type inside), ``bias`` f32;
+    the rest as conv_layout builds them.  The counts carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, weights, bias, ctr, pts, radius, tile_ptr,
+                tile_idx):
+        w = weights.to(feats.dtype).contiguous()
+        y, cnt = conv_fwd(ctr, pts, feats, w, bias, radius, tile_ptr,
+                          tile_idx)
+        ctx.mark_non_differentiable(cnt)
+        ctx.save_for_backward(feats, w, ctr, pts, cnt, tile_ptr, tile_idx)
+        ctx.radius = radius
+        ctx.weights_dtype = weights.dtype
+        return y, cnt
+
+    @staticmethod
+    def backward(ctx, g, _g_cnt):
+        feats, w, ctr, pts, cnt, tile_ptr, tile_idx = ctx.saved_tensors
+        r = ctx.radius
+        g = g.to(torch.float32).contiguous()
+        d_feats = d_w = d_bias = None
+        if ctx.needs_input_grad[1]:
+            d_w = conv_dw(ctr, pts, feats, g, cnt, r, tile_ptr,
+                          tile_idx).to(ctx.weights_dtype)
+        if ctx.needs_input_grad[0]:
+            ptr_t = idx_t = None
+            if tile_ptr is not None:     # candidate tile -> center tiles
+                ptr_t, idx_t = tile_adjacency(pts, ctr, r)
+            d_feats = conv_dx(ctr, pts, g, cnt, w, r, ptr_t,
+                              idx_t).to(feats.dtype)
+        if ctx.needs_input_grad[2]:
+            d_bias = g.sum(dim=(0, 1))
+        return d_feats, d_w, d_bias, None, None, None, None, None
 
 
 def pointwise_conv(
@@ -171,10 +223,8 @@ def pointwise_conv(
       ext_counts, subblock, subblock_cap: not yet ported (they raise).
 
     Returns:
-      (Nc, Cout) or (B, Nc, Cout), in the features' dtype.
-
-    This slice has no backward: on CUDA tensors a call that needs a
-    gradient raises.
+      (Nc, Cout) or (B, Nc, Cout), in the features' dtype.  Differentiable
+      in features, weights and bias (``PointwiseConvFunction``).
     """
     if ext_counts is not None:
         raise NotImplementedError("pointwise_conv ext_counts: not yet ported")
@@ -192,17 +242,15 @@ def pointwise_conv(
             points, features, weights, bias, radius=radius, mask=mask,
             centers=centers, center_mask=center_mask)
 
-    if points.device.type == "cuda" and torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad
-            for t in (features, weights, bias)):
-        raise NotImplementedError(
-            "pointwise_conv backward on CUDA: not yet ported (run under "
-            "torch.no_grad() / torch.inference_mode())")
     kw, (batched, Nc, center_mask) = conv_layout(
         points, features, weights, bias, radius=radius, mask=mask,
         centers=centers, center_mask=center_mask, precision=precision,
         csr=csr)
-    y, _ = conv_fwd(**kw)
+    # the f32 weights, not kw["w"]: the Function casts inside, so that dW
+    # is the gradient of the f32 weights
+    y, _ = PointwiseConvFunction.apply(
+        kw["feats"], weights, kw["bias"], kw["ctr"], kw["pts"], kw["radius"],
+        kw["tile_ptr"], kw["tile_idx"])
     y = y[:, :Nc].to(features.dtype)
     if center_mask is not None:
         y = y * center_mask.to(y.dtype)[..., None]

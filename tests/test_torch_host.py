@@ -119,7 +119,12 @@ def test_port_imports_no_jax():
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import pointwise_torch, pointwise_torch.infer, "
-        "pointwise_torch.streaming, pointwise_torch.convert\n"
+        "pointwise_torch.streaming, pointwise_torch.convert, "
+        "pointwise_torch.train.cli, pointwise_torch.train.trainer, "
+        "pointwise_torch.models.classifier, pointwise_torch.data.augment, "
+        "pointwise_torch.data.modelnet, pointwise_torch.data.pipeline\n"
+        "import runpy\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pointwise_tpu'))\n"
         "assert not bad, bad\n"
@@ -139,3 +144,70 @@ def test_cuda_is_the_default_and_cpu_is_explicit():
             pointwise_torch.resolve_device()
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pointwise_torch.resolve_device("cuda")
+
+
+def test_modelnet_identical():
+    from pointwise_torch.data import modelnet as t_mn
+    from pointwise_tpu.data import modelnet as j_mn
+
+    a = t_mn.load_modelnet40(None, "test", 64, synthetic_size=12, seed=2)
+    b = j_mn.load_modelnet40(None, "test", 64, synthetic_size=12, seed=2)
+    np.testing.assert_array_equal(a.points, b.points)
+    np.testing.assert_array_equal(a.labels, b.labels)
+    assert a.num_classes == b.num_classes
+    for x, y in zip(t_mn.batches(a, 5, seed=3), j_mn.batches(b, 5, seed=3)):
+        for k in x:
+            np.testing.assert_array_equal(x[k], y[k])
+
+
+def test_modelnet_h5_dir_needs_h5py(tmp_path, monkeypatch):
+    from pointwise_torch.data import modelnet as t_mn
+
+    (tmp_path / "ply_data_train0.h5").write_bytes(b"")
+    monkeypatch.setitem(sys.modules, "h5py", None)     # import fails
+    with pytest.raises(RuntimeError, match="h5py"):
+        t_mn.load_modelnet40(os.fspath(tmp_path), "train")
+
+
+def test_augment_properties():
+    import torch
+
+    from pointwise_torch.data import augment
+
+    pts = torch.from_numpy(np.random.RandomState(0).uniform(
+        -1, 1, (4, 100, 3)).astype(np.float32))
+
+    def gen(seed):
+        return torch.Generator().manual_seed(seed)
+
+    # jitter: the clip bound holds, and sigma sets the scale
+    d = augment.jitter(pts, gen(0), sigma=0.05, clip=0.02) - pts
+    assert float(d.abs().max()) <= 0.02 + 1e-7 and float(d.abs().max()) > 0
+    # rotation about Y keeps norms and the Y coordinate
+    r = augment.rotate_y(pts, gen(1))
+    np.testing.assert_allclose(r.norm(dim=-1), pts.norm(dim=-1), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(r[..., 1], pts[..., 1], atol=1e-6)
+    assert not torch.allclose(r, pts)
+    # one scale per cloud, in [0.8, 1.25)
+    s = augment.random_scale(pts, gen(2)) / pts
+    per_cloud = s.reshape(4, -1)
+    assert torch.allclose(per_cloud, per_cloud[:, :1].expand_as(per_cloud))
+    assert 0.8 <= float(s.min()) and float(s.max()) < 1.25
+    # the same generator seed gives the same output, another seed another
+    a = augment.classification_augment(pts, gen(5))
+    assert torch.equal(a, augment.classification_augment(pts, gen(5)))
+    assert not torch.equal(a, augment.classification_augment(pts, gen(6)))
+    assert augment.classification_augment(pts[0], gen(5)).shape == (100, 3)
+
+
+def test_prefetch_keeps_order_on_the_cpu():
+    import torch
+
+    from pointwise_torch.data import pipeline
+
+    batches = [{"x": np.full((2, 3), i, np.float32)} for i in range(5)]
+    out = list(pipeline.prefetch_to_device(iter(batches),
+                                           torch.device("cpu"), size=2))
+    assert [int(b["x"][0, 0]) for b in out] == list(range(5))
+    assert all(isinstance(b["x"], torch.Tensor) for b in out)

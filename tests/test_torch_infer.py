@@ -25,9 +25,20 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CLI = [sys.executable, "-m", "pointwise_torch.infer"]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the CPU paths run many small ops; with the test workers sharing the
+    # cores, more intra-op threads only add contention
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _run(args, stdin="", timeout=600):
     return subprocess.run(CLI + args, input=stdin, capture_output=True,
-                          text=True, cwd=REPO, timeout=timeout)
+                          text=True, cwd=REPO, timeout=timeout,
+                          env=dict(os.environ, OMP_NUM_THREADS="1"))
 
 
 def test_serve_keepalive_cpu(tmp_path):
@@ -118,6 +129,46 @@ def test_cuda_request_without_card_fails():
 
 @pytest.mark.parametrize("extra", [["--dp"], ["--sp", "2"],
                                    ["--checkpoint-dir", "x"]])
-def test_not_yet_ported_flags_fail(extra):
+def test_not_yet_ported_flags_fail(extra, tmp_path):
+    if extra[0] == "--checkpoint-dir":
+        # an orbax checkpoint of the JAX package (numbered step directory)
+        (tmp_path / "x" / "3").mkdir(parents=True)
+        extra = [extra[0], os.fspath(tmp_path / "x")]
     with pytest.raises(NotImplementedError, match="not yet ported"):
         main(["--config", "seg_tiny_stream", "--device", "cpu"] + extra)
+
+
+def test_serves_a_trained_checkpoint(tmp_path):
+    # the port's trainer writes the checkpoint; infer serves it
+    from pointwise_torch.train.cli import main as train_main
+    from pointwise_torch.train.trainer import checkpoint_steps
+
+    ck = os.fspath(tmp_path / "ck")
+    trainer = train_main(["--config", "seg_tiny_local", "--steps", "2",
+                          "--device", "cpu", "--checkpoint-dir", ck])
+    assert checkpoint_steps(ck) == [2]
+    rng = np.random.RandomState(2)
+    n = 600
+    room = np.concatenate([rng.uniform(0.0, 1.5, (n, 3)),
+                           rng.uniform(0.0, 1.0, (n, 3)),
+                           rng.randint(0, 5, (n, 1))], axis=1)
+    room_path = tmp_path / "room.npy"
+    np.save(room_path, room.astype(np.float32))
+    out = _run(["--config", "seg_tiny_local", "--serve", "--device", "cpu",
+                "--warm-points", "0", "--checkpoint-dir", ck,
+                "--tile-size", "1.5"], f"{room_path}\nquit\n")
+    assert out.returncode == 0, out.stderr[-2000:]
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    assert lines[0].get("ready") is True and len(lines) == 2, lines
+    reply = lines[1]
+    assert reply["n_points"] == n and 0.0 <= reply["accuracy"] <= 1.0
+    pred = np.load(reply["output"])
+    assert pred.shape == (n,) and pred.min() >= 0 and pred.max() < 5
+    # the served weights are the trained ones, not a fresh seed's
+    from pointwise_torch.infer import build_model
+
+    served = build_model(get_config("seg_tiny_local"), torch.device("cpu"),
+                         checkpoint_dir=ck)
+    for k, v in trainer.model.state_dict().items():
+        torch.testing.assert_close(served.state_dict()[k], v, rtol=0, atol=0)
