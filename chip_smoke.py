@@ -5,12 +5,19 @@
 
 Phases, each printing one JSON line:
   device   the card's name, count and power limit (nvidia-smi);
-  build    nvcc builds the forward, dW and dX kernels from kernels/csrc/
-           (first use; one nvcc per source, all started together);
+  build    nvcc builds the forward, dW, dX and counts kernels from
+           kernels/csrc/ (first use; one nvcc per source, all started
+           together);
   parity   kernel vs its plain PyTorch version on the card, dense and CSR
            walks, f32 and bf16, B=4, p=4096/8192, Cin=6/124, Cout=124,
            centers != candidates, masked centers, sentinel padding and a
            crafted grid with pairs at exactly the radius and on cell faces;
+           the counts kernel equals the plain counts and the forward's own
+           counts bit for bit; the forward with external counts (counts
+           over every candidate, a half of them as the slab) vs its plain
+           version, and the ring's identity: the f32 sum of the external-
+           counts forwards over 2 and over 4 disjoint candidate slabs
+           equals the forward over all of them (the tolerance of ``compare``);
   serve    the full-width s3dis_synthetic segmenter (numpy-seeded weights
            through convert.py) served by infer.serve(): warm-up on a 200K
            scene, then synth:200000, synth:1000000 and a small-object scan
@@ -21,7 +28,9 @@ Phases, each printing one JSON line:
            phase's inputs (gradient g from a numpy seed), dense and CSR
            walks, f32 and bf16; two launches give identical bits and the
            two walks give identical bits; loss.backward() through
-           pointwise_conv on CUDA tensors launches dw_* and dx_*;
+           pointwise_conv on CUDA tensors launches dw_* and dx_*; dW and
+           dX with the external counts of the parity phase vs their plain
+           versions, bits identical run to run;
   train    the train CLI's function in-process at full width, 20 steps
            each: s3dis_synthetic_local (CSR walk) and modelnet40_synthetic
            (dense walk), checkpoints in a temp dir; finite loss, grad norm
@@ -35,6 +44,24 @@ Phases, each printing one JSON line:
            and idle share of the request and its costliest device ops;
   exact    streamed logits == a direct full-scene forward on a ~20K scene
            (f32 convs, 2e-4);
+  spatial  the ring and gather strategies of spatial parallelism.  (a) One
+           process: the largest served CSR call (layer 3, 1 x 172,032
+           candidates / 73,728 centers, 124 wide, bf16) split into 4
+           candidate slabs through the public ops: pointwise_conv_counts on
+           the whole set, 4 ext_counts partials summed in f32 against the
+           forward (``compare``), with the CUDA-event ms of the counts call,
+           each partial and the forward on the whole set.  (b) 2 ranks
+           spawned on cuda:0 over gloo (host-staged; NCCL refuses two ranks
+           on one card), s3dis_synthetic_local at full width, 8 x 4096, bf16,
+           dropout and jitter 0: 3 steps of the train CLI's function with
+           --sp 2 (gather), 3 of Trainer(mesh, space_axis="space") with
+           impl="spatial:space:ring", and 3 of a ring classifier at
+           modelnet40_synthetic (32 x 1024: the counts and partials take
+           the dense walk); each run's first loss against the single-device
+           trainer's on the same batch (2e-3, the JAX package's bf16 SPMD
+           pin), grad norm > 0, its launches (counts zeroed just before,
+           read just after, summed over the ranks) and ms/step.  No rate of
+           (b) is a multi-card number;
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -43,7 +70,7 @@ Phases, each printing one JSON line:
            captured the same way); dW and dX on the conv inputs of the
            train phase (CSR: segmentation, dense: classification) with g
            from a numpy seed.
-Then the ``kernels`` line (six kernels), the nvidia-smi line and, last, the
+Then the ``kernels`` line (ten kernels), the nvidia-smi line and, last, the
 result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.
@@ -72,7 +99,16 @@ KERNELS = {     # name: (the TPU kernel it replaces, its source here)
     "dw_csr": (f"{_PALLAS}:636", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dx_dense": (f"{_PALLAS}:527", f"{_CSRC}/pointwise_conv_dx.cu"),
     "dx_csr": (f"{_PALLAS}:748", f"{_CSRC}/pointwise_conv_dx.cu"),
+    "counts_dense": (f"{_PALLAS}:1317", f"{_CSRC}/pointwise_conv_counts.cu"),
+    "counts_csr": (f"{_PALLAS}:1317", f"{_CSRC}/pointwise_conv_counts.cu"),
+    "fwd_ext_dense": (f"{_PALLAS}:1366", f"{_CSRC}/pointwise_conv_fwd.cu"),
+    "fwd_ext_csr": (f"{_PALLAS}:1366", f"{_CSRC}/pointwise_conv_fwd.cu"),
 }
+# f32 operations per candidate a counts walk tests: 3 subtractions, 3
+# multiplications and 2 additions for the squared distance, 1 comparison
+COUNTS_OPS_PER_PAIR = 9
+SPATIAL_STEPS = 3
+SPMD_LOSS_RTOL = 2e-3
 TRAIN_STEPS = 20
 TRAIN_CONFIGS = (("s3dis_synthetic_local", "csr"),
                  ("modelnet40_synthetic", "dense"))
@@ -162,10 +198,18 @@ def phase_parity(dev, sizes=(4096, 8192), batch=4):
                         csr=csr)
                     y, cnt = tk.conv_fwd(**kw)
                     y_p, cnt_p = tk.conv_fwd_plain(**kw)
+                    cnt_equal = bool(torch.equal(cnt, cnt_p))
+                    if precision == "float32":   # geometry only: once
+                        walk = (kw["ctr"], kw["pts"], kw["radius"],
+                                kw["tile_ptr"], kw["tile_idx"])
+                        counts = tk.conv_counts(*walk)
+                        cnt_equal &= bool(torch.equal(counts, cnt)
+                                          and torch.equal(
+                                              counts,
+                                              tk.conv_counts_plain(*walk)))
                     if dev.type == "cuda":
                         torch.cuda.synchronize()
                     err, ok = compare(y, y_p, precision)
-                    cnt_equal = bool(torch.equal(cnt, cnt_p))
                     cases.append(dict(p=p, cin=cin, radius=radius,
                                       walk="csr" if csr else "dense",
                                       precision=precision, max_abs_err=err,
@@ -276,6 +320,81 @@ def phase_grad(dev, sizes=(4096, 8192), batch=4):
                              f"{launches}")
     emit({"phase": "grad", "ok": True, "cases": cases,
           "backward_launches": launches})
+
+
+def phase_ext(dev, sizes=(4096, 8192), batch=4, radius=0.375):
+    """The forward with external counts and dW / dX divided by them, on the
+    parity phase's inputs (Cin = Cout = 124): the slab is the first half of
+    the candidates, the counts are over all of them (the counts kernel)."""
+    import numpy as np
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.ops.pointwise_conv import conv_layout
+
+    fwd_cases, grad_cases = [], []
+    for p in sizes:
+        inp = parity_inputs(dev, batch, p, 124, 124, radius, seed=p + 124)
+        n = inp["points"].shape[1]
+
+        def layout(sl, precision, csr):
+            return conv_layout(
+                inp["points"][:, sl], inp["features"][:, sl],
+                inp["weights"], None, radius=radius,
+                mask=inp["mask"][:, sl], centers=inp["centers"],
+                center_mask=inp["center_mask"], precision=precision,
+                csr=csr)
+
+        for csr in (False, True):
+            for precision in ("float32", "bfloat16"):
+                kw_all, (_, nc, _) = layout(slice(None), precision, csr)
+                counts = tk.conv_counts(kw_all["ctr"], kw_all["pts"], radius,
+                                        kw_all["tile_ptr"],
+                                        kw_all["tile_idx"])
+                want, _ = tk.conv_fwd(**kw_all)
+                kw, _ = layout(slice(0, n // 2), precision, csr)
+                y, own = tk.conv_fwd(**kw, cnt_in=counts)
+                y_p, own_p = tk.conv_fwd_plain(**kw, cnt_in=counts)
+                rec = dict(p=p, walk="csr" if csr else "dense",
+                           precision=precision,
+                           own_counts_equal=bool(torch.equal(own, own_p)))
+                rec["max_abs_err"], rec["ok"] = compare(y, y_p, precision)
+                for parts in (2, 4):
+                    edges = np.linspace(0, n, parts + 1).astype(int)
+                    total = None
+                    for a, b in zip(edges[:-1], edges[1:]):
+                        kw_s, _ = layout(slice(a, b), precision, csr)
+                        ys, _ = tk.conv_fwd(**kw_s, cnt_in=counts)
+                        total = ys if total is None else total + ys
+                    err, ok = compare(total, want, precision)
+                    rec[f"slabs{parts}_max_abs_err"] = err
+                    rec["ok"] &= ok
+                torch.cuda.synchronize()
+                fwd_cases.append(rec)
+                if not (rec["ok"] and rec["own_counts_equal"]):
+                    emit({"phase": "parity", "failed": rec})
+                    raise AssertionError(f"ext forward failed: {rec}")
+                # dW and dX take the external counts as their divisor
+                dw_args, dx_args = grad_inputs(kw, seed=p + 5, nc=nc)
+                dw_args = dw_args[:4] + (counts,) + dw_args[5:]
+                dx_args = dx_args[:3] + (counts,) + dx_args[4:]
+                dw, dx = tk.conv_dw(*dw_args), tk.conv_dx(*dx_args)
+                again = (tk.conv_dw(*dw_args), tk.conv_dx(*dx_args))
+                dw_p, dx_p = tk.conv_dw_plain(*dw_args), tk.conv_dx_plain(
+                    *dx_args)
+                torch.cuda.synchronize()
+                g = dict(p=p, walk=rec["walk"], precision=precision,
+                         repeat_identical=bool(torch.equal(dw, again[0])
+                                               and torch.equal(dx, again[1])))
+                for name, x, x_p in (("dw", dw, dw_p), ("dx", dx, dx_p)):
+                    g[f"{name}_max_abs_err"], g[f"{name}_ok"] = compare_grad(
+                        x, x_p, precision)
+                grad_cases.append(g)
+                if not (g["dw_ok"] and g["dx_ok"] and g["repeat_identical"]):
+                    emit({"phase": "grad", "failed": g})
+                    raise AssertionError(f"ext-counts grads failed: {g}")
+    emit({"phase": "parity", "ok": True, "ext_counts": fwd_cases})
+    emit({"phase": "grad", "ok": True, "ext_counts": grad_cases})
 
 
 class ConvRecorder:
@@ -604,6 +723,241 @@ def phase_exact(dev, n_points=20_000):
         raise AssertionError(f"streamed != direct: {err}")
 
 
+def spatial_configs():
+    """The spatial phase's configurations: the training cells at dropout 0
+    (and segmentation jitter 0, ``jitter=0.0`` of the CLI's function), so
+    that a sharded step computes the unsharded one's function."""
+    import dataclasses
+
+    from pointwise_torch.train import get_config
+
+    return (dataclasses.replace(get_config("s3dis_synthetic_local"),
+                                dropout=0.0),
+            dataclasses.replace(get_config("modelnet40_synthetic"),
+                                dropout=0.0))
+
+
+def spatial_batches(cfg, n):
+    """The first ``n`` training batches of the train CLI's epoch 0."""
+    import itertools
+
+    from pointwise_torch.data import modelnet, s3dis
+    from pointwise_torch.train.configs import ClassificationConfig
+
+    if isinstance(cfg, ClassificationConfig):
+        data = modelnet.load_modelnet40(None, "train", cfg.num_points,
+                                        seed=cfg.seed, variant=cfg.variant)
+        it = modelnet.batches(data, cfg.batch_size, seed=cfg.seed)
+    else:
+        rooms = s3dis.load_rooms(None, seed=cfg.seed)
+        blocks = s3dis.training_blocks(
+            cfg, rooms=rooms[max(1, len(rooms) // 10):])
+        it = s3dis.block_batches(blocks, cfg.batch_size, seed=cfg.seed)
+    return list(itertools.islice(it, n))
+
+
+def sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def spatial_worker(mesh, steps, configs):
+    """One rank of the spatial phase's 2-rank runs (spawned by
+    pointwise_torch.parallel.launch, which imports this module): the
+    gather strategy through the train CLI's function (--sp 2), then the
+    ring for the segmenter and for the classifier through the Trainer.
+    Returns, per run, the launches, the step metrics and ms/step."""
+    import contextlib
+    import io
+
+    from pointwise_torch.data import augment, pipeline
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.models import PointwiseClassifier, PointwiseSegmenter
+    from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
+    from pointwise_torch.train import cli
+    from pointwise_torch.train.trainer import Trainer, step_seed
+
+    dev = mesh.device
+    seg, cls = configs
+    if dev.type == "cuda":
+        tk.build_libraries()
+    out = {}
+
+    def run(name, go):
+        marks, metrics = [], []
+
+        def on_step(step, m):
+            sync(dev)
+            marks.append(time.perf_counter())
+            metrics.append({k: float(v) for k, v in m.items()})
+
+        sync(dev)
+        tk.reset_launches()
+        with contextlib.redirect_stdout(io.StringIO()):   # rank 0's JSONL
+            go(on_step)
+        sync(dev)
+        out[name] = dict(launches=dict(tk.LAUNCHES), metrics=metrics,
+                         ms_per_step=(marks[-1] - marks[0])
+                         / (len(marks) - 1) * 1e3)
+
+    def trained(cfg, model, loss_fn, on_step, **spmd):
+        trainer = Trainer(model.to(dev), loss_fn, cfg.optimizer, mesh=mesh,
+                          space_axis="space", **spmd)
+        for step, batch in enumerate(spatial_batches(cfg, steps)):
+            on_step(step + 1, trainer.step(pipeline.to_device(batch, dev),
+                                           step_seed(cfg.seed, step)))
+
+    args = cli.parse_args(["--config", seg.name, "--steps", str(steps),
+                           "--sp", "2", "--device", dev.type])
+    run("gather", lambda on_step: cli.train_segmentation(
+        seg, args, dev, on_step, mesh, jitter=0.0))
+    run("seg_ring", lambda on_step: trained(seg, PointwiseSegmenter(
+        num_classes=seg.num_classes, in_features=seg.in_features,
+        channels=seg.channels, radii=seg.radii, head_dims=seg.head_dims,
+        dropout_rate=0.0, impl="spatial:space:ring",
+        use_global_context=seg.global_context, mesh=mesh,
+        generator=cli._init_generator(seg)), seg_spmd_loss_fn(), on_step))
+    run("cls_ring", lambda on_step: trained(cls, PointwiseClassifier(
+        num_classes=cls.num_classes, channels=cls.channels, radii=cls.radii,
+        head_dims=cls.head_dims, dropout_rate=0.0,
+        impl="spatial:space:ring", context_axes=("space",), mesh=mesh,
+        generator=cli._init_generator(cls)), cls_spmd_loss_fn(), on_step,
+        rng_axes=("data",), global_augment=lambda b, g: dict(
+            b, points=augment.classification_augment(
+                b["points"], g, rotate=cls.rotate_augment))))
+    return out
+
+
+def phase_spatial_served(dev, call, slabs=4):
+    """(a) The ring's arithmetic on one process at the served scale: the
+    largest served CSR call split into ``slabs`` candidate slabs.  Returns
+    the launches and the kernel-level inputs of its counts call and first
+    partial (for the kernels line)."""
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.ops import pointwise_conv, pointwise_conv_counts
+    from pointwise_torch.ops.pointwise_conv import conv_layout, pad_counts
+
+    _, mod, (points, x, mask, centers, center_mask) = call
+    r, prec = mod.radius, mod.precision
+    geo = dict(radius=r, centers=centers, center_mask=center_mask)
+    cuts = torch.arange(points.shape[1]).tensor_split(slabs)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        tk.reset_launches()
+        counts = pointwise_conv_counts(points, mask=mask, **geo)
+        total = None
+        for c in cuts:
+            sl = slice(int(c[0]), int(c[-1]) + 1)
+            part = pointwise_conv(points[:, sl], x[:, sl], mod.kernel, None,
+                                  mask=mask[:, sl], precision=prec,
+                                  ext_counts=counts, **geo).float()
+            total = part if total is None else total + part
+        torch.cuda.synchronize()
+        launches = dict(tk.LAUNCHES)
+        full = pointwise_conv(points, x, mod.kernel, None, mask=mask,
+                              precision=prec, **geo).float()
+        err, ok = compare(total, full, prec)
+        kw_all, _ = conv_layout(points, x, mod.kernel, None, mask=mask,
+                                precision=prec, **geo)
+        cnt_in = pad_counts(counts, kw_all["ctr"].shape[1])
+        walk = (kw_all["ctr"], kw_all["pts"], r, kw_all["tile_ptr"],
+                kw_all["tile_idx"])
+        counts_ms = cuda_time_ms(lambda: tk.conv_counts(*walk), reps=5)
+        fwd_ms = cuda_time_ms(lambda: tk.conv_fwd(**kw_all), reps=5)
+        parts = []
+        for c in cuts:
+            sl = slice(int(c[0]), int(c[-1]) + 1)
+            kw, _ = conv_layout(points[:, sl], x[:, sl], mod.kernel, None,
+                                mask=mask[:, sl], precision=prec, **geo)
+            parts.append(kw)
+        part_ms = [cuda_time_ms(lambda: tk.conv_fwd(**kw, cnt_in=cnt_in),
+                                reps=5) for kw in parts]
+    rec = dict(candidates=int(points.shape[1]), centers=int(centers.shape[1]),
+               cin=int(x.shape[2]), precision=prec, radius=r, slabs=slabs,
+               launches=launches, max_abs_err=err,
+               max_abs_y=float(full.abs().max()), ok=ok, counts_ms=counts_ms,
+               partial_ms=part_ms, partials_total_ms=sum(part_ms),
+               forward_ms=fwd_ms)
+    emit({"phase": "spatial", "served_split": rec})
+    if not (ok and launches["counts_csr"] == 1
+            and launches["fwd_ext_csr"] == slabs):
+        raise AssertionError(f"served-scale ring split failed: {rec}")
+    return launches, (mod, parts[0], cnt_in, center_mask)
+
+
+def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
+    """(b) 2 ranks on cuda:0 over gloo against the single-device trainer.
+    Returns the summed launches of the three runs and the recorded conv
+    calls of the single-device runs (their shapes time the ring's
+    kernels)."""
+    import contextlib
+    import functools
+    import io
+
+    from pointwise_torch.parallel import launch
+    from pointwise_torch.train import cli
+
+    seg, cls = configs or spatial_configs()
+    single, calls = {}, {}
+    for cfg, train in ((seg, functools.partial(cli.train_segmentation,
+                                               jitter=0.0)),
+                       (cls, cli.train_classification)):
+        first = []
+        recorder = ConvRecorder(cfg.radii, prefix="ring")
+        args = cli.parse_args(["--config", cfg.name, "--steps", "1",
+                               "--device", dev.type])
+        with contextlib.redirect_stdout(io.StringIO()):   # its JSONL
+            train(cfg, args, dev,
+                  lambda step, m: first.append(float(m["loss"])))
+        recorder.remove()
+        single[cfg.name] = first[0]
+        calls[cfg.name] = recorder.calls
+    sync(dev)
+    t0 = time.perf_counter()
+    res = launch.spawn(spatial_worker, 2, os.path.join(workdir, "ranks"),
+                       data=1, space=2, backend="gloo",
+                       device="cuda:0" if dev.type == "cuda" else "cpu",
+                       kwargs=dict(steps=steps, configs=(seg, cls)),
+                       timeout=900, comm_timeout=300, threads=4)
+    wall = time.perf_counter() - t0
+    launches = collections.Counter()
+    for name, cfg, need in (
+            ("gather", seg, ("fwd_csr", "dw_csr", "dx_csr")),
+            ("seg_ring", seg, ("counts_csr", "fwd_ext_dense", "dw_dense",
+                               "dx_dense")),
+            ("cls_ring", cls, ("counts_dense", "fwd_ext_dense", "dw_dense",
+                               "dx_dense"))):
+        runs = [r[name] for r in res]
+        got = collections.Counter()
+        for r in runs:
+            got.update(r["launches"])
+        first = runs[0]["metrics"][0]["loss"]
+        rel = abs(first - single[cfg.name]) / abs(single[cfg.name])
+        rec = dict(run=name, config=cfg.name, ranks=2, steps=steps,
+                   launches={k: v for k, v in got.items() if v},
+                   loss_first=first, loss_first_single_device=single[cfg.name],
+                   loss_rel_diff=rel, tol=SPMD_LOSS_RTOL,
+                   loss_last=runs[0]["metrics"][-1]["loss"],
+                   grad_norm_min=min(m["grad_norm"] for r in runs
+                                     for m in r["metrics"]),
+                   ms_per_step=[r["ms_per_step"] for r in runs],
+                   communication="gloo, host-staged, 2 ranks sharing one card "
+                                 "(not a multi-card rate)")
+        emit({"phase": "spatial", **rec})
+        same = all(r["metrics"] == runs[0]["metrics"] for r in runs)
+        if not (rel <= SPMD_LOSS_RTOL and rec["grad_norm_min"] > 0 and same
+                and all(got[k] > 0 for k in need)
+                and all(math.isfinite(m["loss"]) for m in runs[0]["metrics"])):
+            raise AssertionError(f"spatial run {name} failed: {rec}")
+        launches.update(got)
+    emit({"phase": "spatial", "ranks_wall_s": wall})
+    return launches, calls
+
+
 def cuda_time_ms(fn, reps, warmup=1):
     import torch
 
@@ -725,6 +1079,108 @@ def phase_times(calls, per_step):
     return rows
 
 
+def counts_row(name, layer, radius, walk):
+    """The counts kernel at one main-path shape: equal to its plain
+    version, CUDA-event ms (5 launches after one warm-up), the plain
+    version's ms (one call) and the bound: the coordinates, the tile list
+    and the counts moved once, against the walk's tested pairs at
+    ``COUNTS_OPS_PER_PAIR`` f32 operations each."""
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    ctr, pts, _, ptr, idx = walk
+    out, ref = tk.conv_counts(*walk), tk.conv_counts_plain(*walk)
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(lambda: tk.conv_counts(*walk), reps=5)
+    plain_ms = cuda_time_ms(lambda: tk.conv_counts_plain(*walk), reps=1,
+                            warmup=0)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (ctr, pts, ptr, idx, out) if t is not None)
+    tested = (ctr.shape[0] * ctr.shape[1] * pts.shape[1] if idx is None
+              else idx.numel() * tk.TILE * tk.TILE)
+    t_ops = tested * COUNTS_OPS_PER_PAIR / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    row = dict(name=name, layer=layer, radius=radius,
+               shape=dict(B=int(ctr.shape[0]), Mp=int(pts.shape[1]),
+                          Ncp=int(ctr.shape[1]), cin=0, cout=27),
+               precision="float32", pairs=float(out.sum()),
+               tested_pairs=tested, bytes=nbytes, ms=ms, plain_ms=plain_ms,
+               bound_ms=max(t_ops, t_bytes) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               max_abs_err=float((out - ref).abs().max()),
+               ok=bool(torch.equal(out, ref)))
+    emit({"phase": "times", **row})
+    if not row["ok"]:
+        raise AssertionError(f"counts kernel != plain: {row}")
+    return row
+
+
+def ext_row(name, layer, mod, kw, cnt_in, center_mask):
+    """The forward with external counts at one main-path shape
+    (``_time_row``; the counts are an input it reads)."""
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    fa = tuple(kw[k] for k in ("ctr", "pts", "feats", "w", "bias", "radius",
+                               "tile_ptr", "tile_idx")) + (cnt_in,)
+    pairs = float(tk.conv_fwd(*fa)[1].sum())
+    centers = (kw["ctr"].shape[0] * kw["ctr"].shape[1]
+               if center_mask is None else float(center_mask.sum()))
+    return _time_row(name, layer, mod, kw, tk.conv_fwd, tk.conv_fwd_plain,
+                     fa, list(fa[:5]) + list(fa[6:]), pairs,
+                     kw["w"].shape[1], centers)
+
+
+def spatial_rows(served_part, ring_calls):
+    """Rows of the counts kernel and the external-counts forward at the
+    shapes the spatial phase gave them: the seg ring's counts over 8 x 4096
+    candidates for rank 0's 2048 centers (CSR) and its partial over rank
+    1's slab (dense), the classifier ring's counts over 32 x 1024 for 512
+    centers (dense), all at layer 3; the served split's first partial."""
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.ops.pointwise_conv import conv_layout, pad_counts
+
+    rows = [ext_row("fwd_ext_csr", 3, *served_part)]
+    with torch.inference_mode():
+        for config, kname, ext in (("s3dis_synthetic_local", "counts_csr",
+                                    True),
+                                   ("modelnet40_synthetic", "counts_dense",
+                                    False)):
+            layer = max(k[1] for k in ring_calls[config])
+            _, mod, (points, x, mask, _, _) = max(
+                (v for k, v in ring_calls[config].items() if k[1] == layer),
+                key=lambda v: v[0])
+            half = points.shape[1] // 2
+            cmask = None if mask is None else mask[:, :half]
+            kw_all, _ = conv_layout(points, x, mod.kernel, None,
+                                    radius=mod.radius, mask=mask,
+                                    centers=points[:, :half],
+                                    center_mask=cmask,
+                                    precision=mod.precision)
+            walk = (kw_all["ctr"], kw_all["pts"], mod.radius,
+                    kw_all["tile_ptr"], kw_all["tile_idx"])
+            row = counts_row(kname, layer, mod.radius, walk)
+            if (walk[3] is None) != (kname == "counts_dense"):
+                raise AssertionError(f"{kname} took the other walk")
+            rows.append(row)
+            if ext:
+                kw, _ = conv_layout(points[:, half:], x[:, half:], mod.kernel,
+                                    None, radius=mod.radius,
+                                    mask=None if mask is None
+                                    else mask[:, half:],
+                                    centers=points[:, :half],
+                                    center_mask=cmask,
+                                    precision=mod.precision)
+                if kw["tile_idx"] is not None:
+                    raise AssertionError("the ring's slab took the CSR walk")
+                counts = pad_counts(tk.conv_counts(*walk), kw["ctr"].shape[1])
+                rows.append(ext_row("fwd_ext_dense", layer, mod, kw, counts,
+                                    cmask))
+    return rows
+
+
 def main():
     import torch
 
@@ -754,6 +1210,7 @@ def main():
                     if "registers" in ln or "spill" in ln or "smem" in ln]})
     phase_parity(dev)
     phase_grad(dev)
+    phase_ext(dev)
     os.makedirs(tk._BUILD_DIR, exist_ok=True)     # ignored by git
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
         launches, _, served, model = phase_serve(dev, workdir)
@@ -768,10 +1225,20 @@ def main():
             launches[name] = rec["launches"][name]
     phase_trace(dev)
     phase_exact(dev)
+    # the ring's launches: the served-scale split (a) for the CSR walk of
+    # the external-counts forward, the 2-rank runs (b) for the rest
+    ext_launches, served_part = phase_spatial_served(dev,
+                                                     served[("fwd_csr", 3)])
+    launches["fwd_ext_csr"] = ext_launches["fwd_ext_csr"]
+    with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
+        ring_launches, ring_calls = phase_spatial_ranks(dev, workdir)
+    for k in ("counts_dense", "counts_csr", "fwd_ext_dense"):
+        launches[k] = ring_launches[k]
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))
     calls.update(train_calls)
     rows = phase_times(calls, per_step)
+    rows += spatial_rows(served_part, ring_calls)
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]

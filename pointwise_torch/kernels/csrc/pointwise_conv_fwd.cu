@@ -43,6 +43,17 @@
 // The cell code, the walk and the product are shared with the dW and dX
 // kernels (pointwise_conv_common.cuh, which states the exactness rules).
 //
+// External counts (replaces the ext-counts variants of the same three
+// kernels, pointwise_conv_pallas_ext :1366-1403, the cnt_in argument of
+// _fwd_call_resident :366, _fwd_call :1075 and _fwd_call_csr :1028): with a
+// non-null cnt_in (B, Ncp, 27) the means divide by max(cnt_in, 1) instead of
+// the walk's own counts, with the same rounding and product.  cnt_out still
+// receives the walk's own counts.  The ring strategy passes the counts over
+// every candidate of the space group, so the outputs of disjoint candidate
+// slabs sum to the convolution over all of them; a center with positive
+// cnt_in but no neighbor in the slab gets zero sums, so its output is
+// exactly the bias (which the op layer keeps at zero there).
+//
 // bf16 mode (feats and w in bf16): features are already rounded, cell sums
 // and counts stay f32, the means are divided in f32 and then rounded to
 // bf16, the product accumulates in f32 and the bias is added in f32.
@@ -67,6 +78,7 @@ pw_fwd_kernel(const float* __restrict__ ctr,   // (B, Ncp, 3)
               const int* __restrict__ tile_idx,  // (tile_ptr[-1],) or null
               float* __restrict__ y,           // (B, Ncp, cout)
               float* __restrict__ cnt_out,     // (B, Ncp, 27)
+              const float* __restrict__ cnt_in,  // (B, Ncp, 27) or null
               int Ncp, int Mp, int cin, int cout, float radius, float inv) {
   extern __shared__ __align__(16) float smem[];
   const int K = N_CELLS * cin;
@@ -82,10 +94,12 @@ pw_fwd_kernel(const float* __restrict__ ctr,   // (B, Ncp, 3)
                sums, cnts, cxyz, cf);
 
   // means per cell (rounded to the matmul type), counts out
+  const float* div = cnt_in != nullptr ? cnt_in + ((size_t)b * Ncp + c0) * N_CELLS
+                                       : cnts;
   for (int i = threadIdx.x; i < CPB * K; i += THREADS) {
     const int cc = i / K;
     const int k = (i - cc * K) / cin;
-    sums[i] = round_like<T>(sums[i] / fmaxf(cnts[cc * N_CELLS + k], 1.f));
+    sums[i] = round_like<T>(sums[i] / fmaxf(div[cc * N_CELLS + k], 1.f));
   }
   for (int i = threadIdx.x; i < CPB * N_CELLS; i += THREADS)
     cnt_out[((size_t)b * Ncp + c0) * N_CELLS + i] = cnts[i];
@@ -104,8 +118,8 @@ size_t smem_bytes(int cin) {
 template <typename T>
 int launch(const float* ctr, const float* pts, const void* feats, const void* w,
            const float* bias, const int* tile_ptr, const int* tile_idx, float* y,
-           float* cnt, int B, int Ncp, int Mp, int cin, int cout, float radius, float inv,
-           cudaStream_t stream) {
+           float* cnt, const float* cnt_in, int B, int Ncp, int Mp, int cin, int cout,
+           float radius, float inv, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(cin);
   cudaError_t err = cudaFuncSetAttribute(
       pw_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -113,7 +127,7 @@ int launch(const float* ctr, const float* pts, const void* feats, const void* w,
   dim3 grid(Ncp / CPB, B);
   pw_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       ctr, pts, static_cast<const T*>(feats), static_cast<const T*>(w), bias,
-      tile_ptr, tile_idx, y, cnt, Ncp, Mp, cin, cout, radius, inv);
+      tile_ptr, tile_idx, y, cnt, cnt_in, Ncp, Mp, cin, cout, radius, inv);
   return (int)cudaGetLastError();
 }
 
@@ -131,19 +145,21 @@ long long pw_conv_smem_bytes(int cin, int bf16) {
 }
 
 // Forward conv.  Ncp and Mp must be multiples of TILE.  tile_ptr/tile_idx
-// null = dense walk.  feats and w are bf16 when bf16 != 0, else f32.  Returns the
-// cudaError_t of the launch (0 = launched).
+// null = dense walk; cnt_in null = divide by the walk's own counts.  feats and
+// w are bf16 when bf16 != 0, else f32.  Returns the cudaError_t of the launch
+// (0 = launched).
 int pw_conv_fwd(const void* ctr, const void* pts, const void* feats, const void* w,
                 const void* bias, const void* tile_ptr, const void* tile_idx, void* y,
-                void* cnt, int B, int Ncp, int Mp, int cin, int cout, float radius,
-                float inv, int bf16, void* stream) {
+                void* cnt, const void* cnt_in, int B, int Ncp, int Mp, int cin,
+                int cout, float radius, float inv, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto f = [&](auto tag) {
     using T = decltype(tag);
     return launch<T>(static_cast<const float*>(ctr), static_cast<const float*>(pts),
                      feats, w, static_cast<const float*>(bias),
                      static_cast<const int*>(tile_ptr), static_cast<const int*>(tile_idx),
-                     static_cast<float*>(y), static_cast<float*>(cnt), B, Ncp, Mp,
+                     static_cast<float*>(y), static_cast<float*>(cnt),
+                     static_cast<const float*>(cnt_in), B, Ncp, Mp,
                      cin, cout, radius, inv, s);
   };
   return bf16 ? f(__nv_bfloat16()) : f(float());

@@ -1,6 +1,6 @@
 """Pointwise-conv kernels for Hopper: build, bindings, plain versions.
 
-Three kernels, one wrapper each; on a CUDA tensor a wrapper launches its
+Four kernels, one wrapper each; on a CUDA tensor a wrapper launches its
 hand-written kernel (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at
 first use into ``kernels/_build/``, ignored by git, and bound through
 ctypes); on a CPU tensor it runs the plain PyTorch version of the same
@@ -8,11 +8,15 @@ contract.  A CUDA call never falls back to the plain version: a build or
 launch failure raises.
 
   conv_fwd / conv_fwd_plain  forward (csrc/pointwise_conv_fwd.cu), replacing
-      ``_fwd_kernel_resident``, ``_fwd_kernel`` and ``_fwd_kernel_csr``;
+      ``_fwd_kernel_resident``, ``_fwd_kernel`` and ``_fwd_kernel_csr``, and
+      with ``cnt_in`` their external-counts variants
+      (``pointwise_conv_pallas_ext``);
   conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
       replacing the ``_dw_kernel*`` family;
   conv_dx / conv_dx_plain    feature gradient (csrc/pointwise_conv_dx.cu),
-      replacing the ``_dx_kernel*`` family
+      replacing the ``_dx_kernel*`` family;
+  conv_counts / conv_counts_plain  per-cell neighbor counts only
+      (csrc/pointwise_conv_counts.cu), replacing ``_counts_kernel``
 of pointwise_tpu/kernels/pointwise_conv_pallas.py (see the notes at the top
 of each CUDA source).  Each walks, for each row tile of ``TILE`` points, a
 list of ``TILE``-point tiles of the other side: every tile (the dense walk,
@@ -27,14 +31,18 @@ Shared contract (all padded by the op layer, ops/pointwise_conv.py):
   w     (27, Cin, Cout)  same dtype as feats
   bias  (Cout,) f32
   g     (B, Ncp, Cout) f32, the gradient of y
-  cnt   (B, Ncp, 27) f32, the forward's per-cell neighbor counts
+  cnt   (B, Ncp, 27) f32, the forward's per-cell neighbor counts (dW and dX
+        divide by it; the ring strategy passes the counts over all of its
+        candidates here, as the TPU's ext-counts backward does)
+  cnt_in (B, Ncp, 27) f32 or None: external divisor counts of the forward
   tile_ptr (B*Ncp/TILE + 1,) int32 and tile_idx (nnz,) int32, or None: the
         CSR walk's compact list; center tile (b, row) walks the candidate
         tiles tile_idx[tile_ptr[b*Ncp/TILE + row] : tile_ptr[... + 1]].
         conv_dx walks the transposed list (candidate tile -> center tiles,
         ``tile_adjacency(pts, ctr, radius)``), of length B*Mp/TILE + 1.
-conv_fwd returns y (B, Ncp, Cout) f32 and cnt; conv_dw returns dW
-(27, Cin, Cout) f32; conv_dx returns dX (B, Mp, Cin) f32.  Ncp and Mp are
+conv_fwd returns y (B, Ncp, Cout) f32 and its walk's own cnt; conv_dw
+returns dW (27, Cin, Cout) f32; conv_dx returns dX (B, Mp, Cin) f32;
+conv_counts returns cnt (B, Ncp, 27) f32, equal bit for bit to conv_fwd's.  Ncp and Mp are
 multiples of TILE.  Rounding in bf16 mode follows the TPU op (its
 ``_pw_bwd``): g is rounded to bf16 before both products, the means as in the
 forward, 1/max(cnt, 1) and the per-cell gradient sums Z before the dX
@@ -68,7 +76,7 @@ _DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_DIR, "csrc")
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _SOURCES = ("pointwise_conv_fwd.cu", "pointwise_conv_dw.cu",
-            "pointwise_conv_dx.cu")
+            "pointwise_conv_dx.cu", "pointwise_conv_counts.cu")
 _HEADERS = ("pointwise_conv_common.cuh",)
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -76,7 +84,8 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
 LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "dw_dense": 0, "dw_csr": 0,
-            "dx_dense": 0, "dx_csr": 0}
+            "dx_dense": 0, "dx_csr": 0, "counts_dense": 0, "counts_csr": 0,
+            "fwd_ext_dense": 0, "fwd_ext_csr": 0}
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
 # compiler's resource report (registers, shared memory, spills).
@@ -165,7 +174,7 @@ def _bind(stem: str, lib):
     vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
     if stem == "pointwise_conv_fwd":
-        lib.pw_conv_fwd.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
+        lib.pw_conv_fwd.argtypes = [vp] * 10 + [ci] * 5 + [cf, cf, ci, vp]
         lib.pw_conv_fwd.restype = ci
         lib.pw_conv_smem_bytes.argtypes = [ci, ci]
         lib.pw_conv_smem_bytes.restype = ll
@@ -177,6 +186,9 @@ def _bind(stem: str, lib):
         lib.pw_conv_dw.restype = ci
         lib.pw_dw_smem_bytes.argtypes = [ci, ci]
         lib.pw_dw_smem_bytes.restype = ll
+    elif stem == "pointwise_conv_counts":
+        lib.pw_conv_counts.argtypes = [vp] * 5 + [ci] * 3 + [cf, cf, vp]
+        lib.pw_conv_counts.restype = ci
     else:
         lib.pw_conv_dx.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, ci, vp]
         lib.pw_conv_dx.restype = ci
@@ -216,17 +228,23 @@ def _check_walk(ctr, pts, tile_ptr, tile_idx, rows: str = "ctr"):
     return B, Ncp, Mp
 
 
+def _check_counts(cnt, B, Ncp, name="cnt"):
+    if cnt.shape != (B, Ncp, N_CELLS) or cnt.dtype != torch.float32:
+        raise ValueError(f"{name} must be float32 ({B}, {Ncp}, 27), got "
+                         f"{cnt.dtype} {tuple(cnt.shape)}")
+
+
 def _check_grad_inputs(g, cnt, B, Ncp):
     if g.ndim != 3 or g.shape[:2] != (B, Ncp) or g.dtype != torch.float32:
         raise ValueError(f"g must be float32 (B={B}, Ncp={Ncp}, Cout), got "
                          f"{g.dtype} {tuple(g.shape)}")
-    if cnt.shape != (B, Ncp, N_CELLS) or cnt.dtype != torch.float32:
-        raise ValueError(f"cnt must be float32 ({B}, {Ncp}, 27), got "
-                         f"{cnt.dtype} {tuple(cnt.shape)}")
+    _check_counts(cnt, B, Ncp)
 
 
-def _check(ctr, pts, feats, w, bias, tile_ptr, tile_idx):
+def _check(ctr, pts, feats, w, bias, tile_ptr, tile_idx, cnt_in=None):
     B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    if cnt_in is not None:
+        _check_counts(cnt_in, B, Ncp, "cnt_in")
     cin, cout = w.shape[1], w.shape[2]
     if feats.shape != (B, Mp, cin) or w.shape != (N_CELLS, cin, cout):
         raise ValueError(f"feats {tuple(feats.shape)} / w {tuple(w.shape)} "
@@ -290,17 +308,19 @@ def _smem(need, what):
 
 
 def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
-             tile_idx=None):
-    """Forward conv (see the module docstring).  Launches the CUDA kernel on
-    CUDA tensors, runs ``conv_fwd_plain`` on CPU tensors."""
+             tile_idx=None, cnt_in=None):
+    """Forward conv (see the module docstring); with ``cnt_in`` the means
+    divide by those external counts.  Launches the CUDA kernel on CUDA
+    tensors, runs ``conv_fwd_plain`` on CPU tensors."""
     if ctr.device.type == "cpu":
         return conv_fwd_plain(ctr, pts, feats, w, bias, radius, tile_ptr,
-                              tile_idx)
+                              tile_idx, cnt_in)
     if ctr.device.type != "cuda":
         raise ValueError(f"unsupported device {ctr.device}")
     B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
-                                   tile_idx)
-    _check_device([ctr, pts, feats, w, bias, tile_ptr, tile_idx], ctr.device)
+                                   tile_idx, cnt_in)
+    _check_device([ctr, pts, feats, w, bias, tile_ptr, tile_idx, cnt_in],
+                  ctr.device)
     lib = build_libraries()["pointwise_conv_fwd"]
     bf16 = int(feats.dtype == torch.bfloat16)
     _smem(lib.pw_conv_smem_bytes(cin, bf16), f"Cin={cin}")
@@ -312,10 +332,34 @@ def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
         _launch("pw_conv_fwd", lib.pw_conv_fwd(
             ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), w.data_ptr(),
             bias.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), y.data_ptr(),
-            cnt.data_ptr(), B, Ncp, Mp, cin, cout, float(radius),
-            _inv_cell(radius), bf16, stream))
-    LAUNCHES["fwd_dense" if tile_ptr is None else "fwd_csr"] += 1
+            cnt.data_ptr(), _ptr(cnt_in), B, Ncp, Mp, cin, cout,
+            float(radius), _inv_cell(radius), bf16, stream))
+    LAUNCHES[("fwd_ext_" if cnt_in is not None else "fwd_")
+             + ("dense" if tile_ptr is None else "csr")] += 1
     return y, cnt
+
+
+def conv_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
+    """Per-cell neighbor counts (B, Ncp, 27) f32 of the forward's walk, with
+    no features (see the module docstring).  Launches the CUDA kernel on
+    CUDA tensors, runs ``conv_counts_plain`` on CPU tensors."""
+    if ctr.device.type == "cpu":
+        return conv_counts_plain(ctr, pts, radius, tile_ptr, tile_idx)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"unsupported device {ctr.device}")
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    _check_device([ctr, pts, tile_ptr, tile_idx], ctr.device)
+    lib = build_libraries()["pointwise_conv_counts"]
+    cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32,
+                      device=ctr.device)
+    with torch.cuda.device(ctr.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_counts", lib.pw_conv_counts(
+            ctr.data_ptr(), pts.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx),
+            cnt.data_ptr(), B, Ncp, Mp, float(radius), _inv_cell(radius),
+            stream))
+    LAUNCHES["counts_dense" if tile_ptr is None else "counts_csr"] += 1
+    return cnt
 
 
 def _dw_splits(n_rows: int, k: int, cout: int, target_blocks: int = 528):
@@ -425,13 +469,15 @@ def _pair_codes(rel, radius: float):
 def _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx):
     """The forward's walk: f32 cell sums (B, Ncp, 27, Cin) and counts
     (B, Ncp, 27), one center tile at a time over the candidates of its
-    listed tiles (memory bounded by one tile's pairs)."""
+    listed tiles (memory bounded by one tile's pairs).  ``feats=None``:
+    counts only, sums None."""
     B, Ncp, _ = ctr.shape
-    Mp, cin = pts.shape[1], feats.shape[2]
+    Mp = pts.shape[1]
+    cin = 0 if feats is None else feats.shape[2]
     dev = ctr.device
-    x = feats.float()
-    sums = torch.zeros((B, Ncp, N_CELLS, cin), dtype=torch.float32,
-                       device=dev)
+    x = None if feats is None else feats.float()
+    sums = None if feats is None else torch.zeros(
+        (B, Ncp, N_CELLS, cin), dtype=torch.float32, device=dev)
     cnt = torch.zeros((B, Ncp, N_CELLS), dtype=torch.float32, device=dev)
     lane = torch.arange(TILE, device=dev)
     for b, row, tiles in _walk(tile_ptr, tile_idx, B, Ncp // TILE,
@@ -442,27 +488,38 @@ def _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx):
                                radius)                     # (TILE, n)
         ii, jj = torch.nonzero(ok, as_tuple=True)
         slot = ii * N_CELLS + code[ii, jj].long()
-        s = sums[b, row * TILE:(row + 1) * TILE].view(-1, cin)
-        s.index_add_(0, slot, x[b, cidx[jj]])
+        if sums is not None:
+            s = sums[b, row * TILE:(row + 1) * TILE].view(-1, cin)
+            s.index_add_(0, slot, x[b, cidx[jj]])
         cnt[b, row * TILE:(row + 1) * TILE].view(-1).index_add_(
             0, slot, torch.ones_like(slot, dtype=torch.float32))
     return sums, cnt
 
 
 def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
-                   tile_idx=None):
+                   tile_idx=None, cnt_in=None):
     """Plain PyTorch version of ``conv_fwd``: the same padded inputs, the
     same tile list and the same rounding points (features in the matmul
-    type, f32 cell sums and counts, means divided in f32 and rounded to the
-    matmul type, f32 product, f32 bias)."""
+    type, f32 cell sums and counts, means divided in f32 by the counts or
+    by ``cnt_in`` and rounded to the matmul type, f32 product, f32
+    bias)."""
     B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
-                                   tile_idx)
+                                   tile_idx, cnt_in)
     sums, cnt = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
-    xbar = sums / torch.clamp_min(cnt, 1.0)[..., None]
+    div = cnt if cnt_in is None else cnt_in
+    xbar = sums / torch.clamp_min(div, 1.0)[..., None]
     xbar = xbar.to(feats.dtype).float()
     y = xbar.reshape(B, Ncp, N_CELLS * cin) @ w.float().reshape(
         N_CELLS * cin, cout)
     return y + bias, cnt
+
+
+def conv_counts_plain(ctr, pts, radius: float, tile_ptr=None,
+                      tile_idx=None):
+    """Plain PyTorch version of ``conv_counts``: the forward's walk and cell
+    codes with no features; the counts of ``conv_fwd_plain``."""
+    _check_walk(ctr, pts, tile_ptr, tile_idx)
+    return _cell_sums_plain(ctr, pts, None, radius, tile_ptr, tile_idx)[1]
 
 
 def conv_dw_plain(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
@@ -559,7 +616,7 @@ def _boxes_adjacency(radius: float, lo_r, hi_r, lo_c, hi_c,
 
 def tile_adjacency(ctr, pts, radius: float):
     """Center-tile -> candidate-tile lists (tile_ptr, tile_idx) for the CSR
-    walk of ``conv_fwd`` and ``conv_dw``.  The bbox test is symmetric, so
+    walk of ``conv_fwd``, ``conv_dw`` and ``conv_counts``.  The bbox test is symmetric, so
     ``tile_adjacency(pts, ctr, radius)`` is the transposed list (candidate
     tile -> center tiles) that ``conv_dx`` walks."""
     lo_r, hi_r = _row_tile_boxes(ctr, TILE)

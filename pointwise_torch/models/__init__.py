@@ -1,6 +1,7 @@
 from pointwise_torch.models.classifier import (  # noqa: F401
     PointwiseClassifier,
     classification_loss,
+    classification_loss_sums,
 )
 from pointwise_torch.models.layers import (  # noqa: F401
     MaskedBatchNorm,
@@ -11,4 +12,5 @@ from pointwise_torch.models.layers import (  # noqa: F401
 from pointwise_torch.models.segmenter import (  # noqa: F401
     PointwiseSegmenter,
     segmentation_loss,
+    segmentation_loss_sums,
 )

@@ -14,14 +14,19 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pointwise_torch.models.layers import PointwiseConvBlock, dense, masked_pool
+from pointwise_torch.models.layers import (PointwiseConvBlock, context_group,
+                                           dense, masked_pool)
 
 
 class PointwiseClassifier(nn.Module):
     """(B, N, 3) points (+ optional (B, N, C) features) -> (B, classes).
 
     ``in_features`` is the width of ``features`` (3 when the net reads
-    xyz, i.e. ``features=None``)."""
+    xyz, i.e. ``features=None``).  Built with ``impl='spatial:space'``,
+    ``context_axes=('space',)`` and ``mesh=`` it runs on points sharded
+    over the mesh's space group; the pooled head is then identical on every member
+    (its dropout must not fold in the space index: the trainer's
+    ``rng_axes=('data',)``)."""
 
     def __init__(self, num_classes: int = 40, in_features: int = 3, *,
                  channels: Sequence[int] = (124, 124, 124, 124),
@@ -29,14 +34,16 @@ class PointwiseClassifier(nn.Module):
                  head_dims: Sequence[int] = (256, 128),
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
-                 device=None, generator: torch.Generator | None = None):
+                 context_axes: Sequence[str] = (), mesh=None, device=None,
+                 generator: torch.Generator | None = None):
         super().__init__()
+        self.context = context_group(mesh, context_axes)
         if len(channels) != len(radii):
             raise ValueError("channels and radii must have the same length")
         widths = [in_features, *channels]
         self.blocks = nn.ModuleList(
             PointwiseConvBlock(widths[i], c, r, impl=impl, norm=norm,
-                               precision=precision, device=device,
+                               precision=precision, mesh=mesh, device=device,
                                generator=generator)
             for i, (c, r) in enumerate(zip(channels, radii)))
         dims = [2 * channels[-1], *head_dims]
@@ -50,10 +57,20 @@ class PointwiseClassifier(nn.Module):
         x = points if features is None else features
         for blk in self.blocks:
             x = blk(points, x, mask)
-        h = masked_pool(x, mask)                       # (B, 2C)
+        h = masked_pool(x, mask, self.context)         # (B, 2C)
         for lin in self.head:
             h = self.drop(torch.relu(lin(h)))
         return self.out(h)
+
+
+def classification_loss_sums(logits, labels):
+    """Shard-local sums of ``classification_loss`` (the trainer's sums
+    contract): (nll sum, rows, {"accuracy": correct sum})."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[:, None])[:, 0]
+    correct = (logits.argmax(-1) == labels).float()
+    w = torch.tensor(float(labels.shape[0]), device=logits.device)
+    return -ll.sum(), w, {"accuracy": correct.sum()}
 
 
 def classification_loss(logits, labels):

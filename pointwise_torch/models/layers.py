@@ -2,7 +2,8 @@
 
 A port of pointwise_tpu/models/layers.py: a ``PointwiseConv`` module owning
 the (27, Cin, Cout) kernel-cell weights, the conv -> norm -> activation
-block the networks stack with growing radius, and the masked pool.  Weights
+block the networks stack with growing radius, and the masked pool (which
+reduces across the space group when the point dim is sharded).  Weights
 are laid out as in the JAX package (convert.py carries them over).
 """
 
@@ -11,9 +12,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from pointwise_torch.ops.pointwise_conv import pointwise_conv
+from pointwise_torch.parallel.mesh import all_reduce
 
 # flax's lecun_normal: a normal truncated at two standard deviations, scaled
 # so the truncated distribution has variance 1 / fan_in
@@ -43,16 +46,19 @@ class PointwiseConv(nn.Module):
 
     ``precision='bfloat16'`` (default) runs the kernel with bf16 features,
     means and weights and f32 accumulation; 'float32' for parity work.
+    ``impl`` reaches the op unchanged ('spatial:space[:ring]' shards the
+    point dim over ``mesh``'s space group).
     """
 
     def __init__(self, in_features: int, features: int, radius: float, *,
                  use_bias: bool = True, impl: str = "auto",
-                 precision: str = "bfloat16", device=None,
+                 precision: str = "bfloat16", mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.radius = float(radius)
         self.impl = impl
         self.precision = precision
+        self.mesh = mesh
         # fan_in = 27 * cin receptive inputs, matching conv-style init.
         self.kernel = nn.Parameter(lecun_normal_(
             torch.empty(27, in_features, features, device=device),
@@ -64,7 +70,7 @@ class PointwiseConv(nn.Module):
         return pointwise_conv(
             points, x, self.kernel, self.bias, radius=self.radius, mask=mask,
             impl=self.impl, centers=centers, center_mask=center_mask,
-            precision=self.precision)
+            precision=self.precision, mesh=self.mesh)
 
 
 class MaskedBatchNorm(nn.Module):
@@ -98,12 +104,12 @@ class PointwiseConvBlock(nn.Module):
 
     def __init__(self, in_features: int, features: int, radius: float, *,
                  impl: str = "auto", norm: str = "layer",
-                 precision: str = "bfloat16", device=None,
+                 precision: str = "bfloat16", mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.conv = PointwiseConv(in_features, features, radius, impl=impl,
-                                  precision=precision, device=device,
-                                  generator=generator)
+                                  precision=precision, mesh=mesh,
+                                  device=device, generator=generator)
         if norm == "layer":
             # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
             self.norm = nn.LayerNorm(features, eps=1e-6, device=device)
@@ -127,10 +133,63 @@ class PointwiseConvBlock(nn.Module):
         return y
 
 
-def masked_pool(x: torch.Tensor, mask: torch.Tensor | None):
+class PoolAcross(torch.autograd.Function):
+    """The masked pool's partial results of every member of ``group``
+    combined: (max, sum, count) -> (max over members, sum, sum).  Forward:
+    one MAX all-reduce, then one SUM all-reduce of the sums, the counts and
+    which members hold the maximum; backward: one SUM all-reduce of the
+    gradients of the max and the sum.  The max's gradient goes to the
+    members that hold it, split evenly among ties (as the JAX package's
+    all_gather + max differentiates)."""
+
+    @staticmethod
+    def forward(ctx, xmax, xsum, cnt, group):
+        gmax = all_reduce(xmax, group, dist.ReduceOp.MAX)
+        hit = (xmax == gmax).to(xsum.dtype)
+        n = xsum.numel()
+        tot = all_reduce(torch.cat([xsum.reshape(-1), cnt.reshape(-1),
+                                    hit.reshape(-1)]), group)
+        gsum = tot[:n].reshape(xsum.shape)
+        gcnt = tot[n:n + cnt.numel()].reshape(cnt.shape)
+        ties = tot[n + cnt.numel():].reshape(hit.shape)
+        ctx.save_for_backward(hit / ties)
+        ctx.group = group
+        ctx.mark_non_differentiable(gcnt)
+        return gmax, gsum, gcnt
+
+    @staticmethod
+    def backward(ctx, g_max, g_sum, _g_cnt):
+        (share,) = ctx.saved_tensors
+        g_max = torch.zeros_like(share) if g_max is None else g_max
+        g_sum = torch.zeros_like(share) if g_sum is None else g_sum
+        n = g_max.numel()
+        tot = all_reduce(torch.cat([g_max.reshape(-1), g_sum.reshape(-1)]),
+                         ctx.group)
+        return (tot[:n].reshape(share.shape) * share,
+                tot[n:].reshape(share.shape), None, None)
+
+
+def context_group(mesh, axes):
+    """The process group a pool reduces over: None for no axes, else
+    ``mesh``'s group of the one axis (``context_axes`` of the JAX
+    models)."""
+    axes = tuple(axes)
+    if not axes:
+        return None
+    if len(axes) != 1 or mesh is None:
+        raise ValueError(f"context_axes {axes} needs one mesh axis and "
+                         "mesh=")
+    return mesh.group(axes[0])
+
+
+def masked_pool(x: torch.Tensor, mask: torch.Tensor | None, group=None):
     """Concat of masked max-pool and mean-pool over the point dim.
 
     x: (B, N, C); mask: (B, N) or None. Returns (B, 2C).
+
+    ``group``: the process group the POINT dim is sharded over — the pool
+    then combines the members' maxima, sums and counts (``PoolAcross``),
+    so the global context is exact under spatial sharding.
     """
     if mask is None:
         mask = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
@@ -139,4 +198,6 @@ def masked_pool(x: torch.Tensor, mask: torch.Tensor | None):
     xmax = torch.amax(torch.where(m > 0, x, neg), dim=1)
     xsum = torch.sum(x * m, dim=1)
     cnt = torch.sum(m, dim=1)
+    if group is not None:
+        xmax, xsum, cnt = PoolAcross.apply(xmax, xsum, cnt, group)
     return torch.cat([xmax, xsum / torch.clamp_min(cnt, 1.0)], dim=-1)

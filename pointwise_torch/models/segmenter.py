@@ -13,7 +13,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pointwise_torch.models.layers import PointwiseConvBlock, dense, masked_pool
+from pointwise_torch.models.layers import (PointwiseConvBlock, context_group,
+                                           dense, masked_pool)
 
 
 class PointwiseSegmenter(nn.Module):
@@ -23,6 +24,11 @@ class PointwiseSegmenter(nn.Module):
     i.e. ``features=None``).  Submodules: ``blocks`` (the trunk), ``head``
     (hidden Linear layers) and ``out``; convert.py maps the JAX parameter
     tree onto them.
+
+    Spatial sharding: ``impl='spatial:space[:ring]'`` convolves over
+    ``mesh``'s space group, and ``context_axes=('space',)`` makes the
+    global-context pool reduce across it (the JAX model's fields of the
+    same names).
     """
 
     def __init__(self, num_classes: int, in_features: int, *,
@@ -31,16 +37,18 @@ class PointwiseSegmenter(nn.Module):
                  head_dims: Sequence[int] = (256, 128),
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
-                 use_global_context: bool = True, device=None,
+                 use_global_context: bool = True,
+                 context_axes: Sequence[str] = (), mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         if len(channels) != len(radii):
             raise ValueError("channels and radii must have the same length")
         self.use_global_context = use_global_context
+        self.context = context_group(mesh, context_axes)
         widths = [in_features, *channels]
         self.blocks = nn.ModuleList(
             PointwiseConvBlock(widths[i], c, r, impl=impl, norm=norm,
-                               precision=precision, device=device,
+                               precision=precision, mesh=mesh, device=device,
                                generator=generator)
             for i, (c, r) in enumerate(zip(channels, radii)))
         h = sum(channels) + (2 * channels[-1] if use_global_context else 0)
@@ -60,7 +68,7 @@ class PointwiseSegmenter(nn.Module):
             skips.append(x)
         h = torch.cat(skips, dim=-1)
         if self.use_global_context:
-            g = masked_pool(x, mask)
+            g = masked_pool(x, mask, self.context)
             h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)],
                           dim=-1)
         return self._head(h, mask)
@@ -123,6 +131,19 @@ class PointwiseSegmenter(nn.Module):
             pts_cur = ctr
         h = torch.cat(skip_feats, dim=-1)
         return self._head(h, prefix_mask(len(self.blocks), lengths[-1]))
+
+
+def segmentation_loss_sums(logits, labels, mask=None):
+    """Shard-local sums of ``segmentation_loss`` (the trainer's sums
+    contract under a mesh): (nll sum, weight, {"accuracy": correct sum}).
+    Summed over the mesh and divided by the summed weight they give the
+    global masked means exactly (a masked mean is not linear across shards,
+    sums are)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    correct = (logits.argmax(-1) == labels).float()
+    m = torch.ones_like(ll) if mask is None else mask.float()
+    return -(ll * m).sum(), m.sum(), {"accuracy": (correct * m).sum()}
 
 
 def segmentation_loss(logits, labels, mask=None):

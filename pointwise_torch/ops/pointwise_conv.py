@@ -15,7 +15,15 @@ kernel wants:
 
 Dispatch: ``impl='auto'`` runs the Hopper kernels for CUDA tensors and
 their plain PyTorch versions for CPU tensors (kernels/pointwise_conv_cuda.py);
-``impl='reference'`` runs the dense executable spec (ops/reference.py).
+``impl='reference'`` runs the dense executable spec (ops/reference.py);
+``impl='spatial[:axis[:strategy]]'`` shards the point dim of a
+self-convolution over the ``axis`` process group of ``mesh``
+(parallel/spatial.py, gather or ring).
+
+External counts: ``ext_counts=`` divides by counts taken over a larger
+candidate set (``pointwise_conv_counts``), which makes the op linear in the
+candidates: its outputs over disjoint candidate subsets sum to the full
+convolution (the ring strategy).
 
 Gradient: ``PointwiseConvFunction``, a ``torch.autograd.Function`` whose
 forward is ``conv_fwd`` and whose backward is ``conv_dw`` (weights),
@@ -36,6 +44,7 @@ from pointwise_torch.kernels.pointwise_conv_cuda import (
     SENTINEL,
     TILE,
     _SENTINEL_CUT,
+    conv_counts,
     conv_dw,
     conv_dx,
     conv_fwd,
@@ -144,44 +153,61 @@ def conv_layout(points, features, weights, bias=None, *, radius,
     return kw, (batched, Nc, center_mask)
 
 
-class PointwiseConvFunction(torch.autograd.Function):
-    """conv_fwd with the TPU op's gradient (its ``_pw_bwd``).
+def conv_backward(g, feats, w, ctr, pts, cnt, radius, tile_ptr, tile_idx,
+                  need_feats: bool, need_w: bool):
+    """The gradients of one ``conv_fwd`` call, as the TPU op's ``_pw_bwd``
+    forms them: (dX (B, Mp, Cin) in the features' matmul type or None,
+    dW (27, Cin, Cout) f32 or None).  ``g`` (B, Ncp, Cout) f32; ``cnt`` the
+    counts the forward divided by; the rest as the forward took them."""
+    d_feats = d_w = None
+    if need_w:
+        d_w = conv_dw(ctr, pts, feats, g, cnt, radius, tile_ptr, tile_idx)
+    if need_feats:
+        ptr_t = idx_t = None
+        if tile_ptr is not None:         # candidate tile -> center tiles
+            ptr_t, idx_t = tile_adjacency(pts, ctr, radius)
+        d_feats = conv_dx(ctr, pts, g, cnt, w, radius, ptr_t,
+                          idx_t).to(feats.dtype)
+    return d_feats, d_w
 
-    apply(feats, weights, bias, ctr, pts, radius, tile_ptr, tile_idx) ->
-    (y, cnt): ``feats`` padded in the matmul type, ``weights`` (27, Cin,
-    Cout) in any float type (cast to the matmul type inside), ``bias`` f32;
-    the rest as conv_layout builds them.  The counts carry no gradient."""
+
+class PointwiseConvFunction(torch.autograd.Function):
+    """conv_fwd with the TPU op's gradient (its ``_pw_bwd``, and with
+    external counts its ``_pw_ext_bwd``).
+
+    apply(feats, weights, bias, ctr, pts, radius, tile_ptr, tile_idx
+    [, cnt_in]) -> (y, cnt): ``feats`` padded in the matmul type,
+    ``weights`` (27, Cin, Cout) in any float type (cast to the matmul type
+    inside), ``bias`` f32, ``cnt_in`` the padded external counts or None;
+    the rest as conv_layout builds them.  ``cnt`` is the walk's own counts
+    and carries no gradient; the backward divides by ``cnt_in`` when given,
+    as the forward did."""
 
     @staticmethod
     def forward(ctx, feats, weights, bias, ctr, pts, radius, tile_ptr,
-                tile_idx):
+                tile_idx, cnt_in=None):
         w = weights.to(feats.dtype).contiguous()
         y, cnt = conv_fwd(ctr, pts, feats, w, bias, radius, tile_ptr,
-                          tile_idx)
+                          tile_idx, cnt_in)
         ctx.mark_non_differentiable(cnt)
-        ctx.save_for_backward(feats, w, ctr, pts, cnt, tile_ptr, tile_idx)
+        ctx.save_for_backward(feats, w, ctr, pts,
+                              cnt if cnt_in is None else cnt_in, tile_ptr,
+                              tile_idx)
         ctx.radius = radius
         ctx.weights_dtype = weights.dtype
         return y, cnt
 
     @staticmethod
     def backward(ctx, g, _g_cnt):
-        feats, w, ctr, pts, cnt, tile_ptr, tile_idx = ctx.saved_tensors
-        r = ctx.radius
+        feats, w, ctr, pts, div, tile_ptr, tile_idx = ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
-        d_feats = d_w = d_bias = None
-        if ctx.needs_input_grad[1]:
-            d_w = conv_dw(ctr, pts, feats, g, cnt, r, tile_ptr,
-                          tile_idx).to(ctx.weights_dtype)
-        if ctx.needs_input_grad[0]:
-            ptr_t = idx_t = None
-            if tile_ptr is not None:     # candidate tile -> center tiles
-                ptr_t, idx_t = tile_adjacency(pts, ctr, r)
-            d_feats = conv_dx(ctr, pts, g, cnt, w, r, ptr_t,
-                              idx_t).to(feats.dtype)
-        if ctx.needs_input_grad[2]:
-            d_bias = g.sum(dim=(0, 1))
-        return d_feats, d_w, d_bias, None, None, None, None, None
+        d_feats, d_w = conv_backward(
+            g, feats, w, ctr, pts, div, ctx.radius, tile_ptr, tile_idx,
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        if d_w is not None:
+            d_w = d_w.to(ctx.weights_dtype)
+        d_bias = g.sum(dim=(0, 1)) if ctx.needs_input_grad[2] else None
+        return d_feats, d_w, d_bias, None, None, None, None, None, None
 
 
 def pointwise_conv(
@@ -201,6 +227,7 @@ def pointwise_conv(
     ext_counts: torch.Tensor | None = None,
     subblock: int | None = None,
     subblock_cap: int | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Pointwise convolution (see ops/reference.py for exact semantics).
 
@@ -214,25 +241,53 @@ def pointwise_conv(
       centers: optional distinct conv centers (defaults to ``points``).
       center_mask: optional center validity; invalid centers output zeros.
       impl: 'auto' (the Hopper kernel for CUDA tensors, its plain version
-        for CPU tensors) | 'reference' (the dense executable spec).
+        for CPU tensors) | 'reference' (the dense executable spec) |
+        'spatial[:axis[:strategy]]' (the point dim sharded over ``mesh``'s
+        ``axis`` group, default 'space'; strategy 'gather' or 'ring').
       precision: 'float32' | 'bfloat16' matmul inputs (f32 accumulation).
       csr: force (True) or disable (False) the bbox tile-list walk; None
         takes it from 8 walk tiles of 512 candidates up.
       validate: refuse real coordinates that collide with the sentinel
         padding (|x| >= 5e5) instead of silently dropping them.
-      ext_counts, subblock, subblock_cap: not yet ported (they raise).
+      ext_counts: optional (Nc, 27) / (B, Nc, 27) EXTERNAL divisor counts
+        (``pointwise_conv_counts`` over a larger candidate set): the op
+        then computes a partial convolution, linear in the candidates, and
+        needs ``bias=None`` (a bias inside each partial would be summed
+        once per subset).
+      subblock, subblock_cap: not yet ported (they raise).
+      mesh: the parallel.mesh.Mesh of a spatial impl.
 
     Returns:
       (Nc, Cout) or (B, Nc, Cout), in the features' dtype.  Differentiable
       in features, weights and bias (``PointwiseConvFunction``).
     """
-    if ext_counts is not None:
-        raise NotImplementedError("pointwise_conv ext_counts: not yet ported")
+    if ext_counts is not None and bias is not None:
+        raise ValueError(
+            "ext_counts computes a partial convolution — pass bias=None and "
+            "add the bias once after summing the partials")
+    if impl.startswith("spatial"):
+        # 'spatial' or 'spatial:<axis>[:<strategy>]': the point dim sharded
+        # over a process group of the current mesh.  Lazy import: the
+        # parallel package imports this module.
+        from pointwise_torch.parallel.spatial import spatial_pointwise_conv
+
+        parts = impl.split(":")
+        axis = parts[1] if len(parts) > 1 and parts[1] else "space"
+        strategy = parts[2] if len(parts) > 2 else "gather"
+        if centers is not None:
+            raise ValueError("spatial impl shards self-convolution only")
+        dropped = {"center_mask": center_mask, "ext_counts": ext_counts,
+                   "csr": csr, "subblock": subblock,
+                   "subblock_cap": subblock_cap, "validate": validate or None}
+        bad = sorted(k for k, v in dropped.items() if v is not None)
+        if bad:
+            raise ValueError(f"spatial impl does not support {bad}")
+        return spatial_pointwise_conv(
+            points, features, weights, bias, radius=radius,
+            group=None if mesh is None else mesh.group(axis),
+            mask_local=mask, strategy=strategy, precision=precision)
     if subblock is not None or subblock_cap is not None:
         raise NotImplementedError("pointwise_conv subblock: not yet ported")
-    if impl.startswith("spatial"):
-        raise NotImplementedError(f"pointwise_conv impl={impl!r}: not yet "
-                                  "ported")
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl: {impl!r}")
     if validate:
@@ -240,23 +295,55 @@ def pointwise_conv(
     if impl == "reference":
         return _ref.pointwise_conv_reference(
             points, features, weights, bias, radius=radius, mask=mask,
-            centers=centers, center_mask=center_mask)
+            centers=centers, center_mask=center_mask, ext_counts=ext_counts)
 
     kw, (batched, Nc, center_mask) = conv_layout(
         points, features, weights, bias, radius=radius, mask=mask,
         centers=centers, center_mask=center_mask, precision=precision,
         csr=csr)
+    cnt_in = None
+    if ext_counts is not None:
+        cnt_in = pad_counts(ext_counts if batched else ext_counts[None],
+                            kw["ctr"].shape[1])
     # the f32 weights, not kw["w"]: the Function casts inside, so that dW
     # is the gradient of the f32 weights
     y, _ = PointwiseConvFunction.apply(
         kw["feats"], weights, kw["bias"], kw["ctr"], kw["pts"], kw["radius"],
-        kw["tile_ptr"], kw["tile_idx"])
+        kw["tile_ptr"], kw["tile_idx"], cnt_in)
     y = y[:, :Nc].to(features.dtype)
     if center_mask is not None:
         y = y * center_mask.to(y.dtype)[..., None]
     return y if batched else y[0]
 
 
-def pointwise_conv_counts(*args, **kwargs):
-    """Per-cell neighbor counts (the ring strategy's pre-pass)."""
-    raise NotImplementedError("pointwise_conv_counts: not yet ported")
+def pad_counts(counts, ncp: int):
+    """(B, Nc, 27) counts as the kernels' f32 (B, Ncp, 27), zero padded."""
+    counts = counts.detach().to(torch.float32)
+    return torch.nn.functional.pad(
+        counts, (0, 0, 0, ncp - counts.shape[1])).contiguous()
+
+
+def pointwise_conv_counts(
+    points: torch.Tensor,
+    *,
+    radius: float,
+    mask: torch.Tensor | None = None,
+    centers: torch.Tensor | None = None,
+    center_mask: torch.Tensor | None = None,
+    csr: bool | None = None,
+) -> torch.Tensor:
+    """Per-cell neighbor counts (Nc, 27) or (B, Nc, 27) f32: geometry only,
+    no features (the ring strategy's pre-pass; a port of the JAX op's
+    ``pointwise_conv_counts``).
+
+    The same layout as ``pointwise_conv`` (``_geometry_layout``) and the
+    same walk rule (``csr``), so the counts equal the conv's own.  Counts
+    are piecewise constant in the positions and carry no gradient."""
+    (batched, B, M, Nc, Mp, Ncp, pts, ctr,
+     _) = _geometry_layout(points, mask, centers, center_mask)
+    tile_ptr = tile_idx = None
+    if csr_walk(M, csr):
+        tile_ptr, tile_idx = tile_adjacency(ctr, pts, radius)
+    counts = conv_counts(ctr, pts, float(radius), tile_ptr,
+                         tile_idx)[:, :Nc].detach()
+    return counts if batched else counts[0]

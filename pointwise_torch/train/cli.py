@@ -1,10 +1,23 @@
 """Training CLI: ``python -m pointwise_torch.train``.
 
-A port of train.py (segmentation and classification; one device):
+A port of train.py (segmentation and classification):
 
   python -m pointwise_torch.train --config s3dis_synthetic_local --steps 20
   python -m pointwise_torch.train --config modelnet40_synthetic --steps 20
   python -m pointwise_torch.train --config seg_tiny_local --steps 3 --device cpu
+  torchrun --nproc-per-node 4 -m pointwise_torch.train --dp \
+      --config s3dis_synthetic_local
+  torchrun --nproc-per-node 4 -m pointwise_torch.train --sp 2 \
+      --config s3dis_synthetic_local
+
+``--dp`` trains data-parallel over every rank (either configuration);
+``--sp N`` shards the point dim of segmentation over N ranks (the rest
+data-parallel), with the model's convs on ``impl='spatial:space'`` (the
+gather strategy).  Rank r of a torchrun launch computes on
+``cuda:<LOCAL_RANK>`` (NCCL); the CLI refuses to start with fewer cards
+than local ranks.  Without a launcher ``--dp`` runs as one rank.  Every
+rank builds the same global batch from the seed and trains on its shard
+(``Trainer`` under a mesh); only rank 0 prints and writes checkpoints.
 
 The convs run in the Hopper kernels on the card (forward, and dW / dX in
 the backward); ``--device cpu`` runs their plain PyTorch versions.  Every
@@ -21,9 +34,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
+import os
 import time
 
 import torch
+import torch.distributed as dist
 
 from pointwise_torch import resolve_device
 from pointwise_torch.data import augment, modelnet, pipeline, s3dis
@@ -33,11 +48,16 @@ from pointwise_torch.models import (
     classification_loss,
     segmentation_loss,
 )
+from pointwise_torch.parallel.mesh import (default_backend, init_distributed,
+                                           make_mesh)
+from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
 from pointwise_torch.train.configs import ClassificationConfig, get_config
 from pointwise_torch.train.trainer import Trainer, log_metrics, step_seed
 
 # the eval seeds sit far from the step seeds (the JAX loop's 1 << 30 offset)
 _EVAL_KEY = 1 << 30
+# per-point jitter sigma of segmentation training (train.py's value)
+SEG_JITTER = 0.005
 
 
 def run_train_loop(trainer: Trainer, cfg, args, *, make_epoch_iter,
@@ -56,6 +76,7 @@ def run_train_loop(trainer: Trainer, cfg, args, *, make_epoch_iter,
         print(f"# resumed at step {start}", flush=True)
     extra = {"seed": seed}
     device = trainer.device
+    printing = trainer.mesh is None or trainer.mesh.rank == 0
 
     t0 = time.time()
     step = trainer.step_count
@@ -70,14 +91,15 @@ def run_train_loop(trainer: Trainer, cfg, args, *, make_epoch_iter,
             step += 1
             if on_step is not None:
                 on_step(step, metrics)
-            if step % cfg.log_every == 0 or step == 1:
+            if printing and (step % cfg.log_every == 0 or step == 1):
                 log_metrics(step, metrics, t0=t0)
             if eval_iter is not None and (
                     step % cfg.eval_every == 0 or step == max_steps):
                 ev = trainer.evaluate(
                     pipeline.prefetch_to_device(eval_iter(), device),
                     step_seed(seed, _EVAL_KEY + step))
-                log_metrics(step, ev, t0=t0, extra={"split": eval_split})
+                if printing:
+                    log_metrics(step, ev, t0=t0, extra={"split": eval_split})
             if cfg.checkpoint_dir and step % cfg.checkpoint_every == 0:
                 trainer.save_checkpoint(cfg.checkpoint_dir,
                                         cfg.keep_checkpoints, extra=extra)
@@ -117,18 +139,24 @@ def build_classifier(cfg: ClassificationConfig, device):
     return model, loss_fn
 
 
-def build_segmenter(cfg, device):
+def build_segmenter(cfg, device, mesh=None, jitter=SEG_JITTER):
+    """The segmenter and its loss (per-point jitter of sigma ``jitter``);
+    under a mesh with space > 1 its convs shard the point dim
+    (``impl='spatial:space'``, gather)."""
+    spatial = mesh is not None and mesh.space > 1
     model = PointwiseSegmenter(
         num_classes=cfg.num_classes, in_features=cfg.in_features,
         channels=cfg.channels, radii=cfg.radii, head_dims=cfg.head_dims,
-        dropout_rate=cfg.dropout, norm=cfg.norm, impl=cfg.impl,
+        dropout_rate=cfg.dropout, norm=cfg.norm,
+        impl="spatial:space" if spatial else cfg.impl,
         use_global_context=cfg.global_context,
-        generator=_init_generator(cfg)).to(device)
+        context_axes=("space",) if spatial and cfg.global_context else (),
+        mesh=mesh, generator=_init_generator(cfg)).to(device)
 
     def loss_fn(model, batch, generator, train):
         pts = batch["points"]
         if train:
-            pts = augment.jitter(pts, generator, sigma=0.005, clip=0.02)
+            pts = augment.jitter(pts, generator, sigma=jitter, clip=0.02)
         logits = model(pts, batch["features"], batch["mask"])
         loss, acc = segmentation_loss(logits, batch["label"], batch["mask"])
         return loss, {"accuracy": acc}
@@ -136,8 +164,16 @@ def build_segmenter(cfg, device):
     return model, loss_fn
 
 
+def _trainer(model, loss_fn, sums_fn, cfg, mesh, **spmd):
+    """The single-device trainer with ``loss_fn``, or under a mesh the one
+    with the sums-contract ``sums_fn`` (parallel/spmd.py)."""
+    if mesh is None:
+        return Trainer(model, loss_fn, cfg.optimizer)
+    return Trainer(model, sums_fn, cfg.optimizer, mesh=mesh, **spmd)
+
+
 def train_classification(cfg: ClassificationConfig, args, device,
-                         on_step=None) -> Trainer:
+                         on_step=None, mesh=None) -> Trainer:
     data_dir = cfg.data_dir or args.data_dir
     train_data = modelnet.load_modelnet40(data_dir, "train", cfg.num_points,
                                           seed=cfg.seed, variant=cfg.variant)
@@ -149,7 +185,14 @@ def train_classification(cfg: ClassificationConfig, args, device,
     if ncls != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=ncls)
     model, loss_fn = build_classifier(cfg, device)
-    trainer = Trainer(model, loss_fn, cfg.optimizer)
+
+    def augment_clouds(batch, generator):
+        # per-cloud augmentation of the global batch, before sharding
+        return dict(batch, points=augment.classification_augment(
+            batch["points"], generator, rotate=cfg.rotate_augment))
+
+    trainer = _trainer(model, loss_fn, cls_spmd_loss_fn(), cfg, mesh,
+                       rng_axes=("data",), global_augment=augment_clouds)
     steps_per_epoch = max(1, len(train_data.labels) // cfg.batch_size)
     return run_train_loop(
         trainer, cfg, args,
@@ -157,13 +200,15 @@ def train_classification(cfg: ClassificationConfig, args, device,
             train_data, cfg.batch_size, seed=cfg.seed + epoch),
         steps_per_epoch=steps_per_epoch,
         max_steps=args.steps or cfg.epochs * steps_per_epoch,
+        # a mesh needs whole batches: it keeps drop_remainder
         eval_iter=lambda: modelnet.batches(test_data, cfg.batch_size,
                                            shuffle=False,
-                                           drop_remainder=False),
+                                           drop_remainder=mesh is not None),
         on_step=on_step)
 
 
-def train_segmentation(cfg, args, device, on_step=None) -> Trainer:
+def train_segmentation(cfg, args, device, on_step=None, mesh=None,
+                       jitter=SEG_JITTER) -> Trainer:
     # heldout ROOMS for the periodic eval: overlapping-stride blocks of one
     # room share points, so a block-level split would leak
     rooms = s3dis.load_rooms(cfg.data_dir or args.data_dir, seed=cfg.seed)
@@ -179,8 +224,11 @@ def train_segmentation(cfg, args, device, on_step=None) -> Trainer:
         n_eval = max(cfg.batch_size, len(blocks["points"]) // 10)
         eval_blocks = {k: v[:n_eval] for k, v in blocks.items()}
         blocks = {k: v[n_eval:] for k, v in blocks.items()}
-    model, loss_fn = build_segmenter(cfg, device)
-    trainer = Trainer(model, loss_fn, cfg.optimizer)
+    model, loss_fn = build_segmenter(cfg, device, mesh, jitter)
+    trainer = _trainer(model, loss_fn, seg_spmd_loss_fn(jitter_sigma=jitter),
+                       cfg, mesh,
+                       space_axis="space" if mesh and mesh.space > 1
+                       else None)
     steps_per_epoch = max(1, len(blocks["points"]) // cfg.batch_size)
     return run_train_loop(
         trainer, cfg, args,
@@ -190,7 +238,7 @@ def train_segmentation(cfg, args, device, on_step=None) -> Trainer:
         max_steps=args.steps or cfg.epochs * steps_per_epoch,
         eval_iter=lambda: s3dis.block_batches(eval_blocks, cfg.batch_size,
                                               shuffle=False,
-                                              drop_remainder=False),
+                                              drop_remainder=mesh is not None),
         eval_split="heldout_rooms" if len(rooms) >= 2 else "heldout_blocks",
         on_step=on_step)
 
@@ -214,34 +262,86 @@ def parse_args(argv=None):
     ap.add_argument("--tensorboard", default=None,
                     help="tf.summary logdir: not yet ported")
     ap.add_argument("--dp", action="store_true",
-                    help="data parallelism: not yet ported")
+                    help="data parallelism over every rank (torchrun; one "
+                         "rank without a launcher)")
     ap.add_argument("--sp", type=int, default=0,
-                    help="spatial shards: not yet ported")
+                    help="spatial shards of segmentation (mesh = data x "
+                         "space over the torchrun ranks)")
     return ap.parse_args(argv)
 
 
-def main(argv=None, on_step=None) -> Trainer:
+def _rank_device(name: str) -> torch.device:
+    """This rank's device: ``cuda:<LOCAL_RANK>`` for cuda (refusing more
+    local ranks than cards), else the CPU."""
+    dev = resolve_device(name)
+    if dev.type != "cuda":
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise RuntimeError(f"{ranks} local ranks but {cards} card(s): each "
+                           "rank needs a card of its own")
+    torch.cuda.set_device(local)
+    return torch.device("cuda", local)
+
+
+def _launch_mesh(args, device):
+    """The mesh of a torchrun launch (a one-rank group for --dp without
+    one)."""
+    backend = default_backend(device)
+    if not init_distributed(backend, device):
+        if args.sp > 1:
+            raise RuntimeError(
+                f"--sp {args.sp} needs {args.sp} ranks or more: launch with "
+                f"torchrun --nproc-per-node {args.sp} -m pointwise_torch.train")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh(space=max(args.sp, 1), device=device, backend=backend)
+
+
+def main(argv=None, on_step=None, mesh=None) -> Trainer:
     """Run the CLI; returns the trainer.  ``on_step(step, metrics)`` runs
-    after every step (chip_smoke.py times steps with it)."""
+    after every step (chip_smoke.py times steps with it).  ``mesh``: run
+    as this rank of an existing mesh (on its device) instead of building
+    one from the launcher's environment."""
     args = parse_args(argv)
-    if args.dp or args.sp > 1:
-        raise NotImplementedError("--dp / --sp: not yet ported")
     if args.tensorboard:
         raise NotImplementedError("--tensorboard: not yet ported")
     cfg = get_config(args.config)
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
     if cfg.norm == "batch":
-        raise NotImplementedError("--norm batch (MaskedBatchNorm batch "
-                                  "statistics): not yet ported")
+        raise NotImplementedError(
+            "--norm batch (MaskedBatchNorm batch statistics, and under --sp "
+            "their sync over the mesh): not yet ported")
     if cfg.name.startswith(("shapenetpart", "scenenn")):
         raise NotImplementedError(f"config {cfg.name}: not yet ported")
+    if args.sp > 1 and isinstance(cfg, ClassificationConfig):
+        raise NotImplementedError("--sp for classification (a classifier "
+                                  "built with space shards): not yet ported")
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     if args.checkpoint_dir:
         cfg = dataclasses.replace(cfg, checkpoint_dir=args.checkpoint_dir)
-    device = resolve_device(args.device)
-    print(f"# config={args.config} device={device}", flush=True)
+    if mesh is not None:
+        device = mesh.device
+        if device.type != resolve_device(args.device).type:
+            raise ValueError(f"--device {args.device} but the mesh runs on "
+                             f"{device}")
+        if args.sp > 1 and mesh.space != args.sp:
+            raise ValueError(f"--sp {args.sp} but the mesh has space="
+                             f"{mesh.space}")
+    elif args.dp or args.sp > 1:
+        device = _rank_device(args.device)
+        mesh = _launch_mesh(args, device)
+    else:
+        device = resolve_device(args.device)
+    if mesh is None or mesh.rank == 0:
+        print(f"# config={args.config} device={device}", flush=True)
+        if mesh is not None:
+            print(f"# mesh data:{mesh.data} x space:{mesh.space} "
+                  f"backend={mesh.backend}", flush=True)
     if isinstance(cfg, ClassificationConfig):
-        return train_classification(cfg, args, device, on_step)
-    return train_segmentation(cfg, args, device, on_step)
+        return train_classification(cfg, args, device, on_step, mesh)
+    return train_segmentation(cfg, args, device, on_step, mesh)

@@ -1,6 +1,6 @@
 """Training runtime: optimizer, step, evaluation, checkpoints, metrics.
 
-A port of pointwise_tpu/train/trainer.py for one device:
+A port of pointwise_tpu/train/trainer.py:
 
   * ``make_optimizer``: AdamW with linear warmup and cosine decay of the
     learning rate (the values of ``optax.warmup_cosine_decay_schedule``)
@@ -20,6 +20,24 @@ Randomness: ``step`` takes an integer seed; the augmentation generator and
 the dropout seed both derive from it, so a step replays exactly from
 (seed, weights, optimizer state, batch).  Loss contract:
 ``loss_fn(model, batch, generator, train) -> (loss, {name: scalar})``.
+
+Under a mesh (``mesh=``, parallel/mesh.py: data parallelism, and with
+``space_axis='space'`` spatial parallelism) every rank is given the same
+global batch and trains on its (batch-shard, point-shard).  The loss
+contract becomes SUMS (parallel/spmd.py):
+
+    loss_fn(model, batch, generator, train) -> (loss_sum, weight, sums)
+
+each the local shard's.  The trainer sums loss, weight, metrics and every
+gradient over the mesh in one all-reduce and divides by the summed weight
+before clipping, so the sharded step equals the unsharded global-mean step,
+and clipping, AdamW and the schedule run on identical values on every
+rank.  Parameters are broadcast from rank 0 at construction.  The
+generator and dropout seeds fold in the rank's coordinates along
+``rng_axes`` (default both axes: independent per-point noise per shard);
+``global_augment(batch, generator)`` runs on the global batch before
+sharding, with the unfolded generator, for per-cloud augmentation.  Only
+rank 0 writes checkpoints; every rank restores.
 """
 
 from __future__ import annotations
@@ -33,7 +51,9 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from pointwise_torch.parallel.mesh import all_reduce, broadcast_, shard_batch
 from pointwise_torch.train.configs import OptimizerConfig
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt")
@@ -93,10 +113,13 @@ def step_seed(seed: int, *keys: int) -> int:
 
 
 class Trainer:
-    """Single-device trainer around (model, loss_fn)."""
+    """Trainer around (model, loss_fn): one device, or one rank of a mesh
+    (see the module docstring)."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable,
-                 opt_cfg: OptimizerConfig):
+                 opt_cfg: OptimizerConfig, *, mesh=None,
+                 space_axis: str | None = None, rng_axes=None,
+                 global_augment: Callable | None = None):
         self.model = model
         self.loss_fn = loss_fn
         self.opt_cfg = opt_cfg
@@ -105,29 +128,59 @@ class Trainer:
         self.device = self.params[0].device
         self.step_count = 0
         self.restored_extra = None
+        self.mesh = mesh
+        self.global_augment = global_augment
+        if mesh is None:
+            if space_axis is not None or rng_axes is not None:
+                raise ValueError("space_axis and rng_axes need a mesh")
+            return
+        if space_axis not in (None, "space"):
+            raise ValueError(f"space_axis must be 'space', got {space_axis!r}")
+        if space_axis is None and mesh.space > 1:
+            raise ValueError("a mesh with space > 1 needs space_axis='space' "
+                             "(and a model built with impl='spatial:space')")
+        self.rng_axes = tuple(("data", "space") if rng_axes is None
+                              else rng_axes)
+        # every rank starts from rank 0's parameters and buffers
+        broadcast_([*model.parameters(), *model.buffers()],
+                   mesh.group("world"))
 
     def _randomness(self, seed: int):
-        """(augmentation generator on the device, dropout seed)."""
+        """(augmentation generator on the device, dropout seed); under a mesh
+        both fold in this rank's coordinates along ``rng_axes``."""
+        keys = ([] if self.mesh is None
+                else [self.mesh.index(a) for a in self.rng_axes])
         gen = torch.Generator(device=self.device)
-        gen.manual_seed(step_seed(seed, 0))
-        return gen, step_seed(seed, 1)
+        gen.manual_seed(step_seed(seed, 0, *keys))
+        return gen, step_seed(seed, 1, *keys)
 
     def step(self, batch: dict, seed: int) -> dict:
         """One update; returns the loss_fn's metrics plus ``loss`` and
-        ``grad_norm`` (before clipping) as device scalars."""
+        ``grad_norm`` (before clipping) as device scalars.  Under a mesh
+        ``batch`` is the global batch and the metrics are global means."""
         self.model.train()
         gen, drop_seed = self._randomness(seed)
+        if self.mesh is not None:
+            if self.global_augment is not None:
+                glob = torch.Generator(device=self.device)
+                glob.manual_seed(step_seed(seed, 0))
+                batch = self.global_augment(batch, glob)
+            batch = shard_batch(self.mesh, batch)
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
             torch.manual_seed(drop_seed)
-            loss, metrics = self.loss_fn(self.model, batch, gen, True)
+            res = self.loss_fn(self.model, batch, gen, True)
             self.optimizer.zero_grad(set_to_none=False)
-            loss.backward()
+            res[0].backward()
         grads = []
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
             grads.append(p.grad)
+        if self.mesh is None:
+            loss, metrics = res
+        else:
+            loss, metrics, _ = self._sum_over_mesh(res, grads)
         norm = clip_by_global_norm(grads, self.opt_cfg.grad_clip)
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step_count)
@@ -137,15 +190,50 @@ class Trainer:
         out.update(loss=loss.detach(), grad_norm=norm.detach())
         return out
 
+    def _sum_over_mesh(self, out, grads=()):
+        """The sums contract: (loss_sum, weight, sums) and ``grads`` summed
+        over the mesh in one all-reduce, each divided by the summed weight
+        (grads in place).  Returns (global loss, global metric means,
+        summed weight)."""
+        loss_sum, weight, sums = out
+        names = sorted(sums)
+        head = torch.stack([loss_sum.detach().float(), weight.float()]
+                           + [sums[k].detach().float() for k in names])
+        tot = all_reduce(torch.cat([head] + [g.reshape(-1).float()
+                                             for g in grads]),
+                         self.mesh.group("world"))
+        total_w = tot[1]
+        off = len(head)
+        with torch.no_grad():
+            for g in grads:
+                g.copy_((tot[off:off + g.numel()].view_as(g)
+                         / total_w).to(g.dtype))
+                off += g.numel()
+        metrics = {k: tot[2 + i] / total_w for i, k in enumerate(names)}
+        return tot[0] / total_w, metrics, total_w
+
     @torch.no_grad()
     def evaluate(self, batches, seed: int, weight_fn=None) -> dict:
         """Weighted mean metrics over ``batches``: each batch's means weigh
         by its mask count when it has a ``mask``, by its row count
-        otherwise, or by ``weight_fn(batch)``."""
+        otherwise, or by ``weight_fn(batch)``.  Under a mesh each batch is
+        the global batch, and its weight and means (``loss`` among them)
+        are the sums contract's, so the result is the global weighted
+        mean."""
         self.model.eval()
         gen, _ = self._randomness(seed)
         total, wsum = {}, 0.0
         for batch in batches:
+            if self.mesh is not None:
+                out = self.loss_fn(self.model, shard_batch(self.mesh, batch),
+                                   gen, False)
+                loss, metrics, w = self._sum_over_mesh(out)
+                metrics = dict(metrics, loss=loss)
+                w = float(w)
+                for k, v in metrics.items():
+                    total[k] = total.get(k, 0.0) + float(v) * w
+                wsum += w
+                continue
             _, metrics = self.loss_fn(self.model, batch, gen, False)
             if weight_fn is not None:
                 w = float(weight_fn(batch))
@@ -167,7 +255,16 @@ class Trainer:
     def save_checkpoint(self, directory: str, keep: int = 3,
                         extra: dict | None = None) -> int:
         """Write ``ckpt_<step>.pt`` (atomically) and keep the newest
-        ``keep`` checkpoints of the directory."""
+        ``keep`` checkpoints of the directory.  Under a mesh rank 0 writes
+        and every rank waits for it."""
+        if self.mesh is not None:
+            if self.mesh.rank == 0:
+                self._write_checkpoint(directory, keep, extra)
+            dist.barrier(group=self.mesh.group("world"))
+            return self.step_count
+        return self._write_checkpoint(directory, keep, extra)
+
+    def _write_checkpoint(self, directory, keep, extra):
         os.makedirs(directory, exist_ok=True)
         path = os.path.join(directory, f"ckpt_{self.step_count:08d}.pt")
         tmp = f"{path}.tmp.{os.getpid()}"

@@ -151,3 +151,85 @@ def test_launch_counters_and_gradient(cuda):
     torch.cuda.synchronize()
     assert {k: v for k, v in tk.LAUNCHES.items() if k[:2] in ("dw", "dx")} \
         == {"dw_dense": 1, "dw_csr": 1, "dx_dense": 1, "dx_csr": 1}
+
+
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_counts_kernel_matches_plain_and_forward(cuda, csr):
+    # bit for bit: the plain version's counts and the forward kernel's own
+    p = _scene_inputs(cuda, cin=124)
+    kw, _ = conv_layout(p["points"], p["features"], p["weights"], p["bias"],
+                        radius=0.2, mask=p["mask"], centers=p["centers"],
+                        center_mask=p["center_mask"], precision="bfloat16",
+                        csr=csr)
+    args = (kw["ctr"], kw["pts"], kw["radius"], kw["tile_ptr"],
+            kw["tile_idx"])
+    tk.reset_launches()
+    cnt = tk.conv_counts(*args)
+    cnt_p = tk.conv_counts_plain(*args)
+    _, cnt_f = tk.conv_fwd(**kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["counts_csr" if csr else "counts_dense"] == 1
+    assert cnt.sum() > 0
+    assert torch.equal(cnt, cnt_p) and torch.equal(cnt, cnt_f)
+
+
+def _ext_inputs(p, precision, csr, half):
+    """Kernel inputs of the candidates in ``half`` (a slice) against all
+    centers, and the counts over every candidate."""
+    kw_all, _ = conv_layout(p["points"], p["features"], p["weights"], None,
+                            radius=0.3, mask=p["mask"], centers=p["centers"],
+                            center_mask=p["center_mask"],
+                            precision=precision, csr=csr)
+    cnt = tk.conv_counts(kw_all["ctr"], kw_all["pts"], 0.3,
+                         kw_all["tile_ptr"], kw_all["tile_idx"])
+    kw, _ = conv_layout(p["points"][:, half], p["features"][:, half],
+                        p["weights"], None, radius=0.3,
+                        mask=p["mask"][:, half], centers=p["centers"],
+                        center_mask=p["center_mask"], precision=precision,
+                        csr=csr)
+    return kw_all, kw, cnt
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_ext_counts_forward_and_grads_match_plain(cuda, csr, precision):
+    p = _scene_inputs(cuda, cin=124)
+    _, kw, cnt = _ext_inputs(p, precision, csr, slice(0, 1536))
+    y, own = tk.conv_fwd(**kw, cnt_in=cnt)
+    y_p, own_p = tk.conv_fwd_plain(**kw, cnt_in=cnt)
+    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        tuple(y.shape)).astype(np.float32)).to(cuda)
+    ptr_t = idx_t = None
+    if csr:
+        ptr_t, idx_t = tk.tile_adjacency(kw["pts"], kw["ctr"], 0.3)
+    dw_args = (kw["ctr"], kw["pts"], kw["feats"], g, cnt, 0.3,
+               kw["tile_ptr"], kw["tile_idx"])
+    dx_args = (kw["ctr"], kw["pts"], g, cnt, kw["w"], 0.3, ptr_t, idx_t)
+    dw, dx = tk.conv_dw(*dw_args), tk.conv_dx(*dx_args)
+    again = tk.conv_dw(*dw_args), tk.conv_dx(*dx_args)
+    dw_p, dx_p = tk.conv_dw_plain(*dw_args), tk.conv_dx_plain(*dx_args)
+    torch.cuda.synchronize()
+    assert torch.equal(own, own_p) and bool((own <= cnt).all())
+    assert bool((own < cnt).any())       # the slab holds part of each ball
+    _close(y, y_p, precision)
+    _close(dw, dw_p, precision)
+    _close(dx, dx_p, precision)
+    assert torch.equal(dw, again[0]) and torch.equal(dx, again[1])
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_ext_partials_sum_to_forward(cuda, precision):
+    # the ring's identity: disjoint candidate slabs, divided by the counts
+    # over all of them, sum to the forward over all of them
+    p = _scene_inputs(cuda, cin=124)
+    kw_all, _, cnt = _ext_inputs(p, precision, True, slice(0, 1))
+    want, _ = tk.conv_fwd(**kw_all)
+    for parts in (2, 4):
+        edges = np.linspace(0, 3000, parts + 1).astype(int)
+        total = None
+        for a, b in zip(edges[:-1], edges[1:]):
+            _, kw, _ = _ext_inputs(p, precision, True, slice(a, b))
+            y, _ = tk.conv_fwd(**kw, cnt_in=cnt)
+            total = y if total is None else total + y
+        torch.cuda.synchronize()
+        _close(total, want, precision)
