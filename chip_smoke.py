@@ -41,7 +41,9 @@ Phases, each printing one JSON line:
            step 10 and resumed, must end on the same bits; then infer
            serves one 200K request from the segmentation checkpoint;
   trace    one more 200K scene under torch.profiler: the device's busy
-           and idle share of the request and its costliest device ops;
+           and idle share of the request, its device ms per kernel family
+           and its costliest device ops (the train phase's traced steps
+           give the same per step);
   exact    streamed logits == a direct full-scene forward on a ~20K scene
            (f32 convs, 2e-4);
   spatial  the ring and gather strategies of spatial parallelism.  (a) One
@@ -67,11 +69,13 @@ Phases, each printing one JSON line:
            and the max error: the forward's CSR walk on the largest conv
            call the serve phase made, its dense walk on a full batch of
            four small-object scans (a direct forward of the served model,
-           captured the same way); dW and dX on the conv inputs of the
+           captured the same way), each forward also as its two kernels
+           alone (the means walk and the product, the product's own rows
+           against its plain version); dW and dX on the conv inputs of the
            train phase (CSR: segmentation, dense: classification) with g
            from a numpy seed.
-Then the ``kernels`` line (ten kernels), the nvidia-smi line and, last, the
-result line.
+Then the ``kernels`` line (eleven kernels), the nvidia-smi line and, last,
+the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.
 """
@@ -95,6 +99,7 @@ _CSRC = "pointwise_torch/kernels/csrc"
 KERNELS = {     # name: (the TPU kernel it replaces, its source here)
     "fwd_dense": (f"{_PALLAS}:320", f"{_CSRC}/pointwise_conv_fwd.cu"),
     "fwd_csr": (f"{_PALLAS}:599", f"{_CSRC}/pointwise_conv_fwd.cu"),
+    "fwd_product": (f"{_PALLAS}:297", f"{_CSRC}/pointwise_conv_fwd.cu"),
     "dw_dense": (f"{_PALLAS}:396", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dw_csr": (f"{_PALLAS}:636", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dx_dense": (f"{_PALLAS}:527", f"{_CSRC}/pointwise_conv_dx.cu"),
@@ -545,6 +550,20 @@ def device_busy_s(prof):
     return sum(dev_us(e) for e in ops) / 1e6, ops, dev_us
 
 
+# device-time families of the traces: (name, substring of the kernel name)
+KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "pw_fwd_product"),
+                   ("dw_walk", "DwMeans"), ("dw_product", "pw_dw_product"),
+                   ("dw_reduce", "pw_dw_reduce"), ("dx", "pw_dx_kernel"),
+                   ("counts", "pw_counts_kernel"))
+
+
+def kernel_ms(ops, dev_us, per=1):
+    """Device ms of each kernel family in a trace's ops, over ``per``
+    (steps or requests); a walk family includes its feature-pack kernel."""
+    return {fam: sum(dev_us(e) for e in ops if key in e.key) / 1e3 / per
+            for fam, key in KERNEL_FAMILIES}
+
+
 def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
     """Both configurations through the train CLI's function; returns
     ({config: summary}, {(kernel_walk, layer): recorded conv call},
@@ -612,6 +631,8 @@ def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
                    device_busy_s=busy if busy > 0 else "not measured")
         if busy > 0:
             rec["device_idle_share"] = 1.0 - busy / wall
+            rec["kernel_ms_per_step"] = kernel_ms(
+                ops, dev_us, per=traced[1] - traced[0] + 1)
             rec["top"] = [{"op": e.key[:80], "ms": dev_us(e) / 1e3,
                            "calls": e.count}
                           for e in sorted(ops, key=dev_us, reverse=True)[:6]]
@@ -690,6 +711,7 @@ def phase_trace(dev, n_points=200_000, top=8):
         rec["device_busy_s"] = "not measured"
     else:
         rec.update(device_busy_s=busy, device_idle_share=1.0 - busy / wall,
+                   kernel_ms=kernel_ms(dev_ops, dev_us),
                    top=[{"op": e.key[:80], "ms": dev_us(e) / 1e3,
                          "calls": e.count}
                         for e in sorted(dev_ops, key=dev_us,
@@ -977,15 +999,16 @@ def bound(inputs, outputs, pairs, pair_width, rows, cin, cout, bf16):
     bytes moved (each input read once, each output written once; of a
     CSR tile list only its offsets and the indices it holds) over HBM
     bandwidth, and the work these inputs need over the peak rate of its
-    type.  The work is two parts that different units can run at once, so
-    the slower one bounds it: ``pair_width`` f32 adds per in-ball pair on
-    the CUDA cores (Cin for the forward and dW, Cout for dX) and the
-    (27*Cin) x Cout product of ``rows`` real rows (tensor cores in the
-    matmul type).  Returns (ms, "bytes" or "operations", bytes)."""
+    type.  The work is two parts that one unit runs in turn, so they add:
+    ``pair_width`` adds per in-ball pair (Cin for the forward and dW, Cout
+    for dX) and the (27*Cin) x Cout product of ``rows`` real rows (two
+    operations per multiply-add), both at the peak rate of the matmul type
+    (tensor cores in bf16, the CUDA cores' f32 rate in f32).  Returns (ms,
+    "bytes" or "operations", bytes)."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs + outputs
                  if t is not None)
-    t_ops = max(pairs * pair_width / F32_FLOPS, 2.0 * 27 * cin * cout * rows
-                / (BF16_FLOPS if bf16 else F32_FLOPS))
+    t_ops = (pairs * pair_width + 2.0 * 27 * cin * cout * rows) / (
+        BF16_FLOPS if bf16 else F32_FLOPS)
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes)
@@ -1005,20 +1028,48 @@ def _shape(kw):
                 cout=int(kw["w"].shape[2]))
 
 
+def library_product(xbar, w, bias):
+    """The forward's product as one cuBLAS call: y = xbar . W + bias with
+    the operands in their own type and an f32 result (bf16 products
+    accumulate in f32, as in the kernel).  Timed beside the kernel only;
+    the port never calls it.  Returns (a call with no arguments, its
+    name)."""
+    import torch
+
+    wk = w.reshape(-1, w.shape[2])
+    if xbar.dtype != torch.bfloat16:
+        return (lambda: torch.addmm(bias, xbar, wk)), "addmm"
+    try:
+        torch.addmm(bias, xbar, wk, out_dtype=torch.float32)
+        return ((lambda: torch.addmm(bias, xbar, wk,
+                                     out_dtype=torch.float32)),
+                "addmm(out_dtype=float32)")
+    except (RuntimeError, TypeError):
+        # this torch's addmm takes no f32 bias beside bf16 operands
+        return ((lambda: torch.mm(xbar, wk, out_dtype=torch.float32) + bias),
+                "mm(out_dtype=float32) + bias")
+
+
 def _time_row(name, layer, mod, kw, fn, plain, args, inputs, pairs, width,
-              rows, **extra):
+              rows, library=None, **extra):
     """One kernel call at a recorded shape: its output against the plain
     version's, CUDA-event ms (5 launches after one warm-up), the plain
-    version's ms (one call) and the bound."""
+    version's ms (one call), the bound and, where ``library`` (see
+    ``library_product``) is given, the ms of its PyTorch call of the same
+    function (5 calls after one warm-up) and its error against the plain
+    version."""
     import torch
 
     out, ref = fn(*args), plain(*args)
-    if name.startswith("fwd"):
-        err, ok = compare(out[0], ref[0], mod.precision)
-    else:
-        err, ok = compare_grad(out, ref, mod.precision)
+    first = (lambda o: o[0]) if isinstance(out, tuple) else (lambda o: o)
+    err, ok = (compare if name.startswith("fwd") else compare_grad)(
+        first(out), first(ref), mod.precision)
     ms = cuda_time_ms(lambda: fn(*args), reps=5)
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=1, warmup=0)
+    if library is not None:
+        call, extra["library_call"] = library(*args)
+        extra["library_err"], _ = compare(call(), first(ref), mod.precision)
+        extra["library_ms"] = cuda_time_ms(call, reps=5)
     cin, cout = kw["w"].shape[1], kw["w"].shape[2]
     bound_ms, bound_by, nbytes = bound(
         inputs, list(out) if isinstance(out, tuple) else [out], pairs, width,
@@ -1061,10 +1112,24 @@ def phase_times(calls, per_step):
                 fa = tuple(kw[k] for k in ("ctr", "pts", "feats", "w", "bias",
                                            "radius", "tile_ptr", "tile_idx"))
                 pairs = float(tk.conv_fwd(*fa)[1].sum())
+                # the wrapper's two kernels, each alone
+                means = fa[:3] + fa[5:]
+                xbar, _ = tk.conv_fwd_means(*means)
+                pa = (xbar, kw["w"], kw["bias"])
+                split = dict(
+                    walk_ms=cuda_time_ms(lambda: tk.conv_fwd_means(*means),
+                                         reps=5),
+                    product_ms=cuda_time_ms(
+                        lambda: tk.conv_fwd_product(*pa), reps=5))
                 rows.append(_time_row(name, layer, mod, kw, tk.conv_fwd,
                                       tk.conv_fwd_plain, fa,
                                       list(fa[:5]) + lists, pairs, cin,
-                                      centers_n))
+                                      centers_n, **split))
+                rows.append(_time_row("fwd_product", layer, mod, kw,
+                                      tk.conv_fwd_product,
+                                      tk.conv_fwd_product_plain, pa,
+                                      list(pa), 0.0, 0, centers_n,
+                                      library=library_product, walk=walk))
                 continue
             dw_args, dx_args = grad_inputs(kw, seed=layer, nc=nc)
             pairs = float(dw_args[4].sum())
@@ -1249,8 +1314,10 @@ def main():
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
-            "library_ms": None, "shape": top["shape"],
-            "layer": top["layer"], "precision": top["precision"]})
+            "library_ms": top.get("library_ms"), "shape": top["shape"],
+            "layer": top["layer"], "precision": top["precision"],
+            **{k: top[k] for k in ("walk_ms", "product_ms", "walk",
+                                   "library_call") if k in top}})
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

@@ -1,13 +1,15 @@
-// pointwise_conv_common.cuh — device code shared by the forward, dW and dX
-// pointwise-conv kernels (pointwise_conv_{fwd,dw,dx}.cu).
+// pointwise_conv_common.cuh — device code shared by the pointwise-conv
+// kernels (pointwise_conv_{fwd,dw,dx,counts}.cu).
 //
 //   pair_code     the cell code of one (center, candidate) pair, bit for bit
 //                 the TPU's _pairwise_code (pointwise_conv_pallas.py:140);
-//   cell_sums     the forward's walk: for the block's CPB centers, the f32
-//                 sums of the in-ball candidates' feature rows per cell and
-//                 the per-cell counts, in ascending candidate order;
 //   block_product out[i][:] = A[i][:] . W (+ bias) for the block's CPB rows,
-//                 the (27*C) x C' product every kernel ends with.
+//                 the (27*Cout) x Cin product the dX kernel ends with (f32
+//                 FMAs on the CUDA cores; the forward and dW run their
+//                 products on tensor cores, pointwise_conv_walk.cuh).
+//
+// The forward's and dW's means walk (tensor cores) lives in
+// pointwise_conv_walk.cuh; dX and counts keep their CUDA-core walks.
 //
 // Exactness of the cell code (_pairwise_code :140-168): rel = candidate -
 // center in f32; d2 = rx*rx + ry*ry + rz*rz summed in that order; valid iff
@@ -74,75 +76,6 @@ __device__ __forceinline__ int pair_code(float qx, float qy, float qz, float px,
            + axis_cell(rz, radius, inv);
   }
   return code;
-}
-
-// The forward's walk.  The block owns centers c0 .. c0+CPB-1 of batch b (one
-// warp each) and walks every candidate tile (tile_idx == nullptr) or the
-// listed ones, tile_idx[tile_ptr[b*n_rows + row] : ...+1].  For each tile it
-// stages the coordinates (cxyz, TILE*3) and feature rows (cf, TILE*cin) in
-// shared memory; each warp's lanes test 32 candidates at a time against its
-// center, ballot the in-ball ones and, for each of them in ascending
-// candidate order, add its feature row into sums[warp][k][:] (f32, lane c
-// owning channels c, c+32, ...) and one into cnts[warp][k].  Zeroes sums
-// (CPB*27*cin) and cnts (CPB*27) first; ends with a barrier.
-template <typename T>
-__device__ void cell_sums(const float* __restrict__ ctr, const float* __restrict__ pts,
-                          const T* __restrict__ feats, const int* __restrict__ tile_ptr,
-                          const int* __restrict__ tile_idx, int b, int c0, int Ncp,
-                          int Mp, int cin, float radius, float inv, float* sums,
-                          float* cnts, float* cxyz, T* cf) {
-  const int K = N_CELLS * cin;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_cols = Mp / TILE;
-  const int n_rows = Ncp / TILE;
-  const int row = c0 / TILE;
-
-  for (int i = threadIdx.x; i < CPB * K; i += THREADS) sums[i] = 0.f;
-  for (int i = threadIdx.x; i < CPB * N_CELLS; i += THREADS) cnts[i] = 0.f;
-
-  const float* cp = ctr + ((size_t)b * Ncp + c0 + warp) * 3;
-  const float px = cp[0], py = cp[1], pz = cp[2];
-  const float r2 = __fmul_rn(radius, radius);
-  float* my_sums = sums + warp * K;
-  float* my_cnt = cnts + warp * N_CELLS;
-
-  const int* list = nullptr;
-  int n_walk = n_cols;
-  if (tile_idx != nullptr) {
-    const int beg = tile_ptr[b * n_rows + row];
-    list = tile_idx + beg;
-    n_walk = tile_ptr[b * n_rows + row + 1] - beg;
-  }
-  const float* pb = pts + (size_t)b * Mp * 3;
-  const T* fb = feats + (size_t)b * Mp * cin;
-
-  for (int t = 0; t < n_walk; ++t) {
-    const int jt = list != nullptr ? list[t] : t;
-    __syncthreads();   // zeroing done / previous tile consumed
-    for (int i = threadIdx.x; i < TILE * 3; i += THREADS)
-      cxyz[i] = pb[(size_t)jt * TILE * 3 + i];
-    const T* fsrc = fb + (size_t)jt * TILE * cin;
-    for (int i = threadIdx.x; i < TILE * cin; i += THREADS) cf[i] = fsrc[i];
-    __syncthreads();
-#pragma unroll
-    for (int j0 = 0; j0 < TILE; j0 += 32) {
-      const int j = j0 + lane;
-      const int code = pair_code(cxyz[j * 3 + 0], cxyz[j * 3 + 1], cxyz[j * 3 + 2],
-                                 px, py, pz, r2, radius, inv);
-      unsigned m = __ballot_sync(0xffffffffu, code >= 0 && code < N_CELLS);
-      while (m) {
-        const int src = __ffs(m) - 1;
-        m &= m - 1;
-        const int k = __shfl_sync(0xffffffffu, code, src);
-        const T* frow = cf + (j0 + src) * cin;
-        float* srow = my_sums + k * cin;
-        for (int c = lane; c < cin; c += 32) srow[c] += to_f32(frow[c]);
-        if (lane == 0) my_cnt[k] += 1.f;
-      }
-    }
-  }
-  __syncthreads();
 }
 
 // out[i * out_stride + o] = sum_kc A[i*K + kc] * W[kc*N + o] (+ bias[o]) for

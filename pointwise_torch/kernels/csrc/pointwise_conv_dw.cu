@@ -12,9 +12,10 @@
 // its center tiles in order; on the GPU blocks run in no order, so the work
 // splits in two kernels:
 //
-//   pw_dw_means_kernel   the forward's walk (cell_sums, shared with
-//       pointwise_conv_fwd.cu): a block owns 8 centers, one warp each, and
-//       walks every candidate tile or the CSR list; the cell sums are
+//   the means walk       the forward's (pointwise_conv_walk.cuh): 16
+//       centers per CTA walk every candidate tile or the CSR list and sum
+//       each cell's features on tensor cores (0/1 cell planes x features,
+//       mma.sync, empty cells skipped per 16 x 16 block); the sums are
 //       divided by the forward's counts (max(cnt, 1), f32) and rounded to
 //       the matmul type into a workspace xbar (B*Ncp, 27*Cin);
 //   pw_dw_product_kernel dW = xbar^T . round(g) over all B*Ncp centers: a
@@ -28,14 +29,24 @@
 // no atomics, so dW repeats bit for bit from run to run, and the dense and
 // CSR walks give identical bits (the same means, the same product).
 //
-// What bounds it on an H100.  The means walk costs what the forward's cell
-// sums cost (Cin f32 adds per in-ball pair on the CUDA cores, bound by
-// instruction throughput and latency at one 140 KB block per SM, see
-// pointwise_conv_fwd.cu) and dominates.  The product is 2*27*Cin*Cout flops
-// per center on the CUDA cores (f32 FMAs of bf16-exact operands); it reads
-// the xbar workspace (219 MB in bf16 at 8 x 4096 centers, Cin = 124) once
-// per column tile of 64 outputs.  wgmma for the product, and fusing it into
-// the walk with a cluster-level reduction, are later work.
+// What bounds it on an H100.  The means walk costs what the forward's walk
+// costs: one pair_code per listed entry and walk CTA and the per-cell
+// tests on the CUDA cores, the populated cells' MMAs on the tensor cores
+// (the walk header's note).  The product is 2*27*Cin*Cout flops per center
+// on the CUDA cores (f32 FMAs of bf16-exact operands), ~2.5% of a training
+// step; it reads the xbar workspace (219 MB in bf16 at 8 x 4096 centers,
+// Cin = 124) once per column tile of 64 outputs.  Tensor cores for the
+// product, and fusing it into the walk with a cluster-level reduction, are
+// later work.
+//
+// Why the walk runs again instead of taking the forward's xbar.  The
+// forward writes the same bits, but the autograd function keeps only the
+// op's inputs and counts between forward and backward.  Keeping xbar would
+// hold one workspace per conv from the forward to its backward: 219 MB in
+// bf16 per conv at 8 x 4096 centers and Cin = 124, ~0.9 GB for the four
+// convs of a segmentation step.  That memory would buy back one walk per
+// conv (the dW walk's share of a step is in PERF.md); taking it is later
+// work, together with a change of the autograd function.
 //
 // Rounding (the TPU op's _pw_bwd :1295-1308): g arrives in f32 and is
 // rounded to the matmul type before the product; xbar is rounded as in the
@@ -45,7 +56,7 @@
 // The C entry point checks each launch with cudaGetLastError and returns the
 // first error code; the Python wrapper raises on anything but 0.
 
-#include "pointwise_conv_common.cuh"
+#include "pointwise_conv_walk.cuh"
 
 namespace {
 
@@ -55,38 +66,6 @@ constexpr int PM = 64;     // output rows (27*Cin index) per product block
 constexpr int PN = 64;     // output columns (Cout) per product block
 constexpr int PK = 32;     // centers per staged chunk
 constexpr int PTHREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
-pw_dw_means_kernel(const float* __restrict__ ctr,     // (B, Ncp, 3)
-                   const float* __restrict__ pts,     // (B, Mp, 3)
-                   const T* __restrict__ feats,       // (B, Mp, cin)
-                   const float* __restrict__ cnt,     // (B, Ncp, 27), the forward's
-                   const int* __restrict__ tile_ptr,  // (B * Ncp/TILE + 1) or null
-                   const int* __restrict__ tile_idx,  // (tile_ptr[-1],) or null
-                   T* __restrict__ xbar,              // (B * Ncp, 27 * cin)
-                   int Ncp, int Mp, int cin, float radius, float inv) {
-  extern __shared__ __align__(16) float smem[];
-  const int K = N_CELLS * cin;
-  float* sums = smem;                    // CPB * K
-  float* cnts = sums + CPB * K;          // CPB * 27 (the walk's own; unused)
-  float* cxyz = cnts + CPB * N_CELLS;    // TILE * 3
-  T* cf = reinterpret_cast<T*>(cxyz + TILE * 3);   // TILE * cin
-
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.x * CPB;
-  cell_sums<T>(ctr, pts, feats, tile_ptr, tile_idx, b, c0, Ncp, Mp, cin, radius, inv,
-               sums, cnts, cxyz, cf);
-
-  const size_t row0 = (size_t)b * Ncp + c0;
-  const float* cb = cnt + row0 * N_CELLS;
-  T* xb = xbar + row0 * K;
-  for (int i = threadIdx.x; i < CPB * K; i += THREADS) {
-    const int cc = i / K;
-    const int k = (i - cc * K) / cin;
-    xb[i] = from_f32<T>(sums[i] / fmaxf(cb[cc * N_CELLS + k], 1.f));
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(PTHREADS)
@@ -161,25 +140,16 @@ __global__ void pw_dw_reduce_kernel(const float* __restrict__ part,  // (S, n)
 }
 
 template <typename T>
-size_t means_smem_bytes(int cin) {
-  return sizeof(float) * ((size_t)CPB * (N_CELLS * cin + N_CELLS) + TILE * 3)
-         + sizeof(T) * (size_t)TILE * cin;
-}
-
-template <typename T>
 int launch(const float* ctr, const float* pts, const void* feats, const float* g,
-           const float* cnt, const int* tile_ptr, const int* tile_idx, void* xbar,
-           float* part, float* dw, int B, int Ncp, int Mp, int cin, int cout,
+           const float* cnt, const int* tile_ptr, const int* tile_idx, void* packed,
+           void* xbar, float* part, float* dw, int B, int Ncp, int Mp, int cin, int cout,
            int splits, int chunk, float radius, float inv, cudaStream_t stream) {
-  const size_t smem = means_smem_bytes<T>(cin);
-  cudaError_t err = cudaFuncSetAttribute(
-      pw_dw_means_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  pw_dw_means_kernel<T><<<dim3(Ncp / CPB, B), THREADS, smem, stream>>>(
-      ctr, pts, static_cast<const T*>(feats), cnt, tile_ptr, tile_idx,
-      static_cast<T*>(xbar), Ncp, Mp, cin, radius, inv);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int code = launch_walk<DwMeans, T>(ctr, pts, static_cast<const T*>(feats),
+                            static_cast<__nv_bfloat16*>(packed), tile_ptr, tile_idx, cnt,
+                            nullptr, static_cast<T*>(xbar), N_CELLS * cin, B, Ncp, Mp, cin,
+                            radius, inv, stream);
+  if (code != 0) return code;
+  cudaError_t err;
 
   const int K = N_CELLS * cin;
   const int n_rows = B * Ncp;
@@ -199,21 +169,28 @@ int launch(const float* ctr, const float* pts, const void* feats, const float* g
 
 extern "C" {
 
-// Dynamic shared memory of the means kernel (bytes); the wrapper refuses
-// widths above the card's 227 KB per block.
+// Dynamic shared memory of one walk CTA (bytes); the wrapper refuses more
+// than the card's 227 KB per block.
 long long pw_dw_smem_bytes(int cin, int bf16) {
-  return (long long)(bf16 ? means_smem_bytes<__nv_bfloat16>(cin)
-                          : means_smem_bytes<float>(cin));
+  return (long long)(bf16 ? walk_smem_bytes<__nv_bfloat16>(cin) : walk_smem_bytes<float>(cin));
+}
+
+// bf16 elements of the walk's packed-feature scratch.
+long long pw_dw_pack_elems(int cin, int bf16, int B, int Mp) {
+  return (long long)(bf16 ? walk_pack_elems<__nv_bfloat16>(cin, B, Mp)
+                          : walk_pack_elems<float>(cin, B, Mp));
 }
 
 // Weight gradient.  Ncp and Mp must be multiples of TILE; tile_ptr/tile_idx
 // null = dense walk.  feats (and the xbar workspace, B*Ncp*27*cin) are bf16
-// when bf16 != 0, else f32; g, cnt and dw (27*cin*cout) are f32.  The
+// when bf16 != 0, else f32; packed holds pw_dw_pack_elems bf16 of scratch;
+// g, cnt and dw (27*cin*cout) are f32.  The
 // centers split into `splits` slices of `chunk`; part holds
 // splits*27*cin*cout f32 (unused when splits == 1).  Returns the first
 // cudaError_t of the launches (0 = launched).
 int pw_conv_dw(const void* ctr, const void* pts, const void* feats, const void* g,
-               const void* cnt, const void* tile_ptr, const void* tile_idx, void* xbar,
+               const void* cnt, const void* tile_ptr, const void* tile_idx, void* packed,
+               void* xbar,
                void* part, void* dw, int B, int Ncp, int Mp, int cin, int cout,
                int splits, int chunk, float radius, float inv, int bf16, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -222,7 +199,8 @@ int pw_conv_dw(const void* ctr, const void* pts, const void* feats, const void* 
     return launch<T>(static_cast<const float*>(ctr), static_cast<const float*>(pts),
                      feats, static_cast<const float*>(g),
                      static_cast<const float*>(cnt), static_cast<const int*>(tile_ptr),
-                     static_cast<const int*>(tile_idx), xbar, static_cast<float*>(part),
+                     static_cast<const int*>(tile_idx), packed, xbar,
+                     static_cast<float*>(part),
                      static_cast<float*>(dw), B, Ncp, Mp, cin, cout, splits, chunk,
                      radius, inv, s);
   };

@@ -1,0 +1,500 @@
+// pointwise_conv_walk.cuh — the tensor-core means walk shared by the forward
+// (pointwise_conv_fwd.cu) and the weight gradient (pointwise_conv_dw.cu),
+// and the PTX helpers (cp.async, ldmatrix, mma.sync) of both.
+//
+// What it computes.  For every center i and cell k, the mean of the feature
+// rows of the in-ball candidates j with pair_code(i, j) == k, divided in f32
+// by max(count, 1) (or by max(cnt_in, 1)) and rounded to the matmul type T,
+// into a workspace xbar (B*Ncp rows, row stride ldx, column k*cin + c); and
+// the per-cell counts.  The TPU kernel's formulation (_bin_accumulate
+// :220 and _foreach_mask :171 of pointwise_conv_pallas.py): per cell, a 0/1
+// plane times the features on the matrix unit, never a scatter.
+//
+// Design.  A CTA owns WALK_M = 16 centers (one m16 MMA row tile) and walks
+// their row tile's candidate tiles (every tile, or the CSR list) in
+// ascending order, two list entries (128 candidates) per iteration in bf16
+// and one in f32.  Per iteration it
+//   * computes the 16 x 128 cell codes (pair_code, unchanged) into shared
+//     bytes, laid out so that each lane reads the 8 codes of its mma.sync
+//     A fragment with one 8-byte load (0xFF: no cell), and marks the
+//     16-candidate k-steps that hold a pair of one of the CTA's cells;
+//   * stages, with cp.async, the feature rows of those live k-steps only;
+//     the codes run one iteration ahead, so the features land while the
+//     iteration before is summed, and the coordinates two ahead;
+//   * for each live k-step and each of the warp's cells, builds the 0/1
+//     bf16 A fragment from the codes with __vcmpeq4/__byte_perm, skips the
+//     cell when __any_sync finds no pair of it in the 16 x 16 block, and
+//     otherwise runs mma.sync.m16n8k16 (bf16 in, f32 accumulate) against
+//     the staged features, B fragments by ldmatrix.trans.
+// The sums stay in f32 registers with static indices.  16 centers x 27
+// cells x 128 channels of f32 would take nearly a whole register file, so
+// the (cell, channel) space is split: a warp owns CW cells x NT n8-tiles
+// (CW * NT = 16, 64 accumulator registers), NT the smallest power of two
+// (<= 16) that holds Cin + 1 columns, so the one A fragment of a cell feeds
+// NT MMAs.  The warps of a center tile spread over `ctas` CTAs of at most
+// 9 warps (at Cin = 124: NT = 16, one cell per warp, 3 CTAs of 9 warps,
+// CTA c holding the cells of x-third c of the ball, so it stages about a
+// third of the k-steps; at Cin = 3 or 6: NT = 1, 16 cells per warp, one CTA
+// of 2 warps); wider features take `ng` channel groups of NT*8 - 1
+// channels.  Each CTA computes its own codes: one pair_code per listed
+// entry per CTA.
+//
+// Counts.  The last staged column of each channel group is 1.0, so its MMA
+// column sums the plane: the count of each (center, cell), an integer sum
+// of 1 x 1 products, exact in the f32 accumulator (below 2^24) and so
+// equal to conv_counts bit for bit.
+//
+// f32 mode.  A pack kernel splits each f32 feature into three bf16 terms,
+// hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid), whose sum is x
+// exactly (for |x| up to bf16's largest finite value, 3.39e38); the walk
+// runs three MMAs per n8-tile against the same exact 0/1 plane.  bf16 mode
+// stages the features as they are (one term).
+//
+// Order and bits.  Every (center, cell, channel) sum has one owner thread
+// and runs in the walk's tile order, so results repeat bit for bit; a tile
+// the CSR list drops holds no in-ball pair, so the dense walk skips every
+// cell of it and both walks give identical bits.
+//
+// What bounds it on an H100: latency.  The accumulators of 16 centers (27
+// x 128 f32 each) fill most of an SM's registers, so an SM runs 2 CTAs (18
+// warps), and each iteration's chains (codes, cell tests, MMAs) and its two
+// barriers run in turn with little to hide them.  The work itself is the
+// codes (one pair_code per listed entry per CTA, ~30 instructions on the
+// CUDA cores) and the per-cell tests; the MMAs of the populated cells are
+// the smaller part, since Morton order keeps a 16 x 16 block in a few of
+// the 27 cells.
+
+#pragma once
+
+#include "pointwise_conv_common.cuh"
+
+namespace pw {
+
+constexpr int WALK_M = 16;          // centers per walk CTA
+constexpr int WALK_MAX_WARPS = 9;   // warps per walk CTA, at most
+constexpr int MAX_WIDTH = 1024;     // widest Cin (and forward Cout) accepted
+constexpr unsigned NO_CELL = 0xFFu;
+
+// Tags of the walk's two callers: the kernels' names (and so the traces)
+// tell the forward's walk from dW's.
+struct FwdMeans {};
+struct DwMeans {};
+
+template <typename T>
+struct Terms;
+template <>
+struct Terms<float> { static constexpr int value = 3; };
+template <>
+struct Terms<__nv_bfloat16> { static constexpr int value = 1; };
+
+// Candidates per walk iteration: two list entries in bf16, one in f32
+// (whose three feature terms fill the shared memory of one).
+template <typename T>
+struct WalkRows;
+template <>
+struct WalkRows<float> { static constexpr int value = TILE; };
+template <>
+struct WalkRows<__nv_bfloat16> { static constexpr int value = 2 * TILE; };
+
+// ---- PTX helpers ---------------------------------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes past src_bytes are filled with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x2_t(unsigned& r0, unsigned& r1, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r0), "=r"(r1)
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// d += a . b, m16n8k16, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// ---- layout ---------------------------------------------------------------
+
+struct WalkShape {
+  int nt;      // n8 tiles per warp (and per channel group)
+  int ng;      // channel groups of nt*8 - 1 channels (+ the ones column)
+  int warps;   // warps per CTA
+  int ctas;    // CTAs per (center tile, channel group)
+};
+
+inline WalkShape walk_shape(int cin) {
+  const int need = (cin + 1 + 7) / 8;
+  int nt = 1;
+  while (nt < need && nt < 16) nt *= 2;
+  const int per = nt * 8 - 1;
+  const int ncg = (N_CELLS + 16 / nt - 1) / (16 / nt);   // cell groups
+  const int ctas = (ncg + WALK_MAX_WARPS - 1) / WALK_MAX_WARPS;
+  return {nt, (cin + per - 1) / per, (ncg + ctas - 1) / ctas, ctas};
+}
+
+// bf16 elements of the packed features: [terms][B][ng][Mp][nt*8].
+template <typename T>
+size_t walk_pack_elems(int cin, int B, int Mp) {
+  const WalkShape s = walk_shape(cin);
+  return (size_t)Terms<T>::value * B * s.ng * Mp * s.nt * 8;
+}
+
+template <typename T>
+size_t walk_smem_bytes(int cin) {
+  const int sp = walk_shape(cin).nt * 8 + 8;
+  const int rows = WalkRows<T>::value;
+  return sizeof(__nv_bfloat16) * 2 * Terms<T>::value * rows * sp   // features
+         + sizeof(float) * 2 * rows * 3                             // coordinates
+         + 2 * (rows / 16) * 32 * sizeof(uint2)                     // codes
+         + sizeof(float) * WALK_M * 3                               // centers
+         + 2 * 32;                                                  // live k-steps
+}
+
+// ---- kernels ---------------------------------------------------------------
+
+// feats (B, Mp, cin) -> packed [terms][B][ng][Mp][nt*8] bf16: group g holds
+// channels g*(nt*8-1) .. +nt*8-2 (zeros past cin) and 1.0 in its last
+// column (in the first term only); f32 features split into hi, mid, lo.
+template <typename Tag, typename T>
+__global__ void pw_walk_pack_kernel(const T* __restrict__ feats,
+                                    __nv_bfloat16* __restrict__ packed, int B, int Mp,
+                                    int cin, int nt, int ng) {
+  const int w = nt * 8, per = w - 1;
+  const size_t n = (size_t)B * ng * Mp * w;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int lc = (int)(i % w);
+    size_t r = i / w;
+    const int j = (int)(r % Mp);
+    r /= Mp;
+    const int g = (int)(r % ng);
+    const int b = (int)(r / ng);
+    const int ch = g * per + lc;
+    float x = 0.f;
+    if (lc == per) {
+      x = 1.f;
+    } else if (ch < cin) {
+      x = to_f32(feats[((size_t)b * Mp + j) * cin + ch]);
+    }
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    packed[i] = hi;
+    if (Terms<T>::value == 3) {
+      const float r1 = __fsub_rn(x, __bfloat162float(hi));
+      const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+      packed[n + i] = mid;
+      packed[2 * n + i] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+    }
+  }
+}
+
+// The means walk (see the note at the top).  Grid: x = (Ncp / WALK_M)
+// center tiles x ng channel groups x ctas, y = B; block: warps * 32.
+template <typename Tag, typename T, int NT>
+__global__ void __launch_bounds__(WALK_MAX_WARPS * 32, 2)
+pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
+               const float* __restrict__ pts,            // (B, Mp, 3)
+               const __nv_bfloat16* __restrict__ packed, // pw_walk_pack_kernel
+               const int* __restrict__ tile_ptr,         // (B * Ncp/TILE + 1) or null
+               const int* __restrict__ tile_idx,         // (tile_ptr[-1],) or null
+               const float* __restrict__ cnt_in,         // (B, Ncp, 27) or null
+               float* __restrict__ cnt_out,              // (B, Ncp, 27) or null
+               T* __restrict__ xbar,                     // (B * Ncp, ldx)
+               int ldx, int B, int Ncp, int Mp, int cin, int ng_total, int ctas,
+               float radius, float inv) {
+  constexpr int CW = 16 / NT;           // cells per warp
+  constexpr int TERMS = Terms<T>::value;
+  constexpr int ROWS = WalkRows<T>::value;   // candidates per iteration
+  constexpr int SUB = ROWS / TILE;      // list entries per iteration
+  constexpr int KS = ROWS / 16;         // k-steps per iteration
+  constexpr int W8 = NT * 8;            // staged columns
+  constexpr int SP = W8 + 8;            // padded shared row: ldmatrix rows on distinct banks
+  constexpr unsigned ONE2 = 0x3F803F80u;   // two bf16 1.0
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [2][TERMS][ROWS][SP]
+  float* cxyz = reinterpret_cast<float*>(fs + 2 * TERMS * ROWS * SP);   // [2][ROWS*3]
+  uint2* codes = reinterpret_cast<uint2*>(cxyz + 2 * ROWS * 3);         // [2][KS][32]
+  float* pc = reinterpret_cast<float*>(codes + 2 * KS * 32);           // [WALK_M*3]
+  unsigned char* live_w = reinterpret_cast<unsigned char*>(pc + WALK_M * 3);   // [2][32]
+
+  const int nthreads = blockDim.x;
+  const int nwarps = nthreads >> 5;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int per_tile = ng_total * ctas;
+  const int ct = blockIdx.x / per_tile;
+  const int rem = blockIdx.x - ct * per_tile;
+  const int ng = rem / ctas;
+  const int cg0 = (rem - ng * ctas) * nwarps;   // the CTA's first cell group
+  const int cg = cg0 + warp;                    // this warp's
+  const bool active = cg * CW < N_CELLS;
+  const int cell_lo = cg0 * CW;                 // the CTA's cells: [cell_lo, cell_hi)
+  const int cell_hi = min(cell_lo + nwarps * CW, N_CELLS);
+  const int b = blockIdx.y;
+  const int c0 = ct * WALK_M;
+  const int n_rows = Ncp / TILE;
+  const int row = c0 / TILE;
+
+  const int* list = nullptr;
+  int n_walk = Mp / TILE;
+  if (tile_idx != nullptr) {
+    const int beg = tile_ptr[b * n_rows + row];
+    list = tile_idx + beg;
+    n_walk = tile_ptr[b * n_rows + row + 1] - beg;
+  }
+  const int n_it = (n_walk + SUB - 1) / SUB;
+  const float* pb = pts + (size_t)b * Mp * 3;
+  const size_t term_stride = (size_t)B * ng_total * Mp * W8;
+  const __nv_bfloat16* fb = packed + ((size_t)b * ng_total + ng) * Mp * W8;
+  const float r2 = __fmul_rn(radius, radius);
+
+  for (int i = threadIdx.x; i < WALK_M * 3; i += nthreads)
+    pc[i] = ctr[((size_t)b * Ncp + c0) * 3 + i];
+
+  // Iteration u walks list entries u*SUB .. u*SUB + SUB-1 (those < n_walk).
+  auto tile_of = [&](int t) { return list != nullptr ? list[t] : t; };
+  // Iteration u's coordinates into cxyz[buf] (cp.async, not committed).
+  auto stage_xyz = [&](int u, int buf) {
+    for (int c = threadIdx.x; c < SUB * TILE * 3 / 4; c += nthreads) {
+      const int i = c / (TILE * 3 / 4), cc = c - i * (TILE * 3 / 4);
+      if (u * SUB + i < n_walk)
+        cp_async16(cxyz + buf * ROWS * 3 + c * 4,
+                   pb + (size_t)tile_of(u * SUB + i) * TILE * 3 + cc * 4, 16);
+    }
+  };
+  // Iteration u's feature rows into fs[buf], only those of the live k-steps
+  // (bit s of `live`: k-step s holds a pair of one of the CTA's cells).
+  auto stage_feats = [&](int u, int buf, unsigned live) {
+    for (int c = threadIdx.x; c < TERMS * ROWS * NT; c += nthreads) {
+      const int term = c / (ROWS * NT);
+      const int rr = c - term * ROWS * NT;
+      const int j = rr / NT, q = rr - j * NT;
+      if ((live >> (j >> 4)) & 1u)
+        cp_async16(fs + ((buf * TERMS + term) * ROWS + j) * SP + q * 8,
+                   fb + term * term_stride
+                       + ((size_t)tile_of(u * SUB + j / TILE) * TILE + j % TILE) * W8
+                       + q * 8,
+                   16);
+    }
+  };
+  // The codes of the 16 x ROWS block of iteration u (coordinates in
+  // cxyz[buf]) into codes[buf], in each lane's fragment order: code (m, j)
+  // at byte ((j/16)*32 + (m%8)*4 + (j%8)/2)*8 + ((j/8)%2)*4 + (m/8)*2 + j%2
+  // (k-step, lane, position in the lane's 8 bytes); and each warp's live
+  // k-steps of the CTA's cells into live_w[buf][warp].  Thread t takes
+  // center t % 16 (kept in registers) and candidates t/16, t/16 + step, ...
+  auto make_codes = [&](int u, int buf) {
+    const float* cx = cxyz + buf * ROWS * 3;
+    unsigned char* cb = reinterpret_cast<unsigned char*>(codes + buf * KS * 32);
+    const int n_real = min(n_walk - u * SUB, SUB) * TILE;
+    const int m = threadIdx.x & 15;
+    const float px = pc[m * 3 + 0], py = pc[m * 3 + 1], pz = pc[m * 3 + 2];
+    unsigned char* cm = cb + (m & 7) * 32 + (m >> 3) * 2;
+    unsigned live = 0;
+#pragma unroll 4
+    for (int j = threadIdx.x >> 4; j < ROWS; j += nthreads >> 4) {
+      const int code = j < n_real ? pair_code(cx[j * 3 + 0], cx[j * 3 + 1], cx[j * 3 + 2],
+                                              px, py, pz, r2, radius, inv)
+                                  : N_CELLS;
+      cm[(j >> 4) * 256 + ((j & 6) << 2) + ((j & 8) >> 1) + (j & 1)] =
+          (unsigned char)(code >= 0 && code < N_CELLS ? code : NO_CELL);
+      if (code >= cell_lo && code < cell_hi) live |= 1u << (j >> 4);
+    }
+    live = __reduce_or_sync(0xffffffffu, live);
+    if (lane == 0) live_w[buf * 32 + warp] = (unsigned char)live;
+  };
+  auto live_of = [&](int buf) {
+    unsigned live = 0;
+    for (int w = 0; w < nwarps; ++w) live |= live_w[buf * 32 + w];
+    return live;
+  };
+
+  float acc[CW][NT][4];
+#pragma unroll
+  for (int i = 0; i < CW; ++i)
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  // The codes run one iteration ahead of the sums, so that each
+  // iteration's features are fetched for its live k-steps only and land
+  // while the iteration before is summed.
+  unsigned live_cur = 0;
+  if (n_it > 0) {
+    stage_xyz(0, 0);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();
+    make_codes(0, 0);
+    __syncthreads();
+    live_cur = live_of(0);
+    stage_feats(0, 0, live_cur);
+    if (n_it > 1) stage_xyz(1, 1);
+    cp_async_commit();
+  }
+  for (int u = 0; u < n_it; ++u) {
+    const int buf = u & 1;
+    cp_async_wait_all();
+    __syncthreads();   // u's features and u+1's coordinates landed; u-1 summed
+    if (u + 1 < n_it) make_codes(u + 1, buf ^ 1);
+    __syncthreads();   // u+1's codes and live k-steps written
+    unsigned live_next = 0;
+    if (u + 1 < n_it) {
+      live_next = live_of(buf ^ 1);
+      stage_feats(u + 1, buf ^ 1, live_next);
+      if (u + 2 < n_it) stage_xyz(u + 2, buf);
+    }
+    cp_async_commit();
+
+    if (active && live_cur != 0u) {
+      const __nv_bfloat16* ft = fs + buf * TERMS * ROWS * SP;
+      const uint2* cbuf = codes + buf * KS * 32;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        if (!((live_cur >> s) & 1u)) continue;   // no pair of the CTA's cells
+        const uint2 cw = cbuf[s * 32 + lane];
+        const __nv_bfloat16* frow = ft + (s * 16 + (lane & 15)) * SP + (lane >> 4) * 8;
+#pragma unroll
+        for (int i = 0; i < CW; ++i) {
+          const unsigned kk = (unsigned)(cg * CW + i) * 0x01010101u;
+          const unsigned e0 = __vcmpeq4(cw.x, kk);
+          const unsigned e1 = __vcmpeq4(cw.y, kk);
+          if (!__any_sync(0xffffffffu, (e0 | e1) != 0u)) continue;   // empty cell
+          const unsigned a[4] = {__byte_perm(e0, 0u, 0x1100) & ONE2,
+                                 __byte_perm(e0, 0u, 0x3322) & ONE2,
+                                 __byte_perm(e1, 0u, 0x1100) & ONE2,
+                                 __byte_perm(e1, 0u, 0x3322) & ONE2};
+#pragma unroll
+          for (int term = 0; term < TERMS; ++term) {
+            const __nv_bfloat16* fp = frow + term * ROWS * SP;
+            if constexpr (NT == 1) {
+              unsigned b0, b1;
+              ldsm_x2_t(b0, b1, fp);
+              mma_bf16(acc[i][0], a, b0, b1);
+            } else {
+#pragma unroll
+              for (int p = 0; p < NT / 2; ++p) {
+                unsigned bb[4];
+                ldsm_x4_t(bb, fp + p * 16);
+                mma_bf16(acc[i][2 * p], a, bb[0], bb[1]);
+                mma_bf16(acc[i][2 * p + 1], a, bb[2], bb[3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    live_cur = live_next;
+  }
+  if (!active) return;
+
+  // means (and counts): thread (g, tq) holds rows g and g+8, columns
+  // nt*8 + 2*tq + {0, 1}; the count is column W8-1, held by lane g*4 + 3
+  const int g = lane >> 2, tq = lane & 3;
+  const int per = W8 - 1;
+#pragma unroll
+  for (int i = 0; i < CW; ++i) {
+    const int k = cg * CW + i;
+    if (k >= N_CELLS) continue;   // warp-uniform
+    const float own[2] = {__shfl_sync(0xffffffffu, acc[i][NT - 1][1], (lane & ~3) | 3),
+                          __shfl_sync(0xffffffffu, acc[i][NT - 1][3], (lane & ~3) | 3)};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const size_t rg = (size_t)b * Ncp + c0 + g + 8 * h;
+      if (cnt_out != nullptr && ng == 0 && tq == 3) cnt_out[rg * N_CELLS + k] = own[h];
+      const float d = fmaxf(cnt_in != nullptr ? cnt_in[rg * N_CELLS + k] : own[h], 1.f);
+      T* xr = xbar + rg * ldx + (size_t)k * cin;
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int lc = n * 8 + 2 * tq + e;
+          const int ch = ng * per + lc;
+          if (lc < per && ch < cin) xr[ch] = from_f32<T>(acc[i][n][2 * h + e] / d);
+        }
+      }
+    }
+  }
+}
+
+template <typename Tag, typename T, int NT>
+int launch_walk_nt(const WalkShape& s, const float* ctr, const float* pts,
+                   const __nv_bfloat16* packed, const int* tile_ptr, const int* tile_idx,
+                   const float* cnt_in, float* cnt_out, T* xbar, int ldx, int B, int Ncp,
+                   int Mp, int cin, float radius, float inv, cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<T>(cin);
+  cudaError_t err = cudaFuncSetAttribute(
+      pw_walk_kernel<Tag, T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((Ncp / WALK_M) * s.ng * s.ctas, B);
+  pw_walk_kernel<Tag, T, NT><<<grid, s.warps * 32, smem, stream>>>(
+      ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin,
+      s.ng, s.ctas, radius, inv);
+  return (int)cudaGetLastError();
+}
+
+// Pack the features, then walk.  packed holds walk_pack_elems<T> bf16.
+// Returns the first cudaError_t (0 = launched).
+template <typename Tag, typename T>
+int launch_walk(const float* ctr, const float* pts, const T* feats,
+                __nv_bfloat16* packed, const int* tile_ptr, const int* tile_idx,
+                const float* cnt_in, float* cnt_out, T* xbar, int ldx, int B, int Ncp,
+                int Mp, int cin, float radius, float inv, cudaStream_t stream) {
+  if (cin < 1 || cin > MAX_WIDTH) return (int)cudaErrorInvalidValue;
+  const WalkShape s = walk_shape(cin);
+  const size_t n = (size_t)B * s.ng * Mp * s.nt * 8;
+  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+  pw_walk_pack_kernel<Tag, T><<<blocks, 256, 0, stream>>>(feats, packed, B, Mp, cin, s.nt, s.ng);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  switch (s.nt) {
+    case 1:
+      return launch_walk_nt<Tag, T, 1>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
+                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+    case 2:
+      return launch_walk_nt<Tag, T, 2>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
+                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+    case 4:
+      return launch_walk_nt<Tag, T, 4>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
+                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+    case 8:
+      return launch_walk_nt<Tag, T, 8>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
+                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+    default:
+      return launch_walk_nt<Tag, T, 16>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in,
+                                   cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+  }
+}
+
+}  // namespace pw

@@ -1,7 +1,7 @@
 """Pointwise-conv kernels for Hopper: build, bindings, plain versions.
 
-Four kernels, one wrapper each; on a CUDA tensor a wrapper launches its
-hand-written kernel (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at
+Hand-written kernels, one wrapper each; on a CUDA tensor a wrapper launches
+its kernel (``csrc/*.cu``, built with ``nvcc`` for ``sm_90a`` at
 first use into ``kernels/_build/``, ignored by git, and bound through
 ctypes); on a CPU tensor it runs the plain PyTorch version of the same
 contract.  A CUDA call never falls back to the plain version: a build or
@@ -10,7 +10,10 @@ launch failure raises.
   conv_fwd / conv_fwd_plain  forward (csrc/pointwise_conv_fwd.cu), replacing
       ``_fwd_kernel_resident``, ``_fwd_kernel`` and ``_fwd_kernel_csr``, and
       with ``cnt_in`` their external-counts variants
-      (``pointwise_conv_pallas_ext``);
+      (``pointwise_conv_pallas_ext``): the means walk ``conv_fwd_means``
+      (csrc/pointwise_conv_walk.cuh, tensor cores) then the product
+      ``conv_fwd_product`` (``_finalize_tile``'s), each with its plain
+      version;
   conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
       replacing the ``_dw_kernel*`` family;
   conv_dx / conv_dx_plain    feature gradient (csrc/pointwise_conv_dx.cu),
@@ -77,18 +80,24 @@ _CSRC = os.path.join(_DIR, "csrc")
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _SOURCES = ("pointwise_conv_fwd.cu", "pointwise_conv_dw.cu",
             "pointwise_conv_dx.cu", "pointwise_conv_counts.cu")
-_HEADERS = ("pointwise_conv_common.cuh",)
+_HEADERS = ("pointwise_conv_common.cuh", "pointwise_conv_walk.cuh")
+# The widest Cin (and forward Cout) the forward and dW kernels take (the
+# card tests hold them to it); csrc/pointwise_conv_walk.cuh's MAX_WIDTH.
+MAX_WIDTH = 1024
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
-LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "dw_dense": 0, "dw_csr": 0,
+LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "fwd_product": 0,
+            "dw_dense": 0, "dw_csr": 0,
             "dx_dense": 0, "dx_csr": 0, "counts_dense": 0, "counts_csr": 0,
             "fwd_ext_dense": 0, "fwd_ext_csr": 0}
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
-# compiler's resource report (registers, shared memory, spills).
+# compiler's resource report (registers, shared memory, spills).  Every
+# kernel declares ``__launch_bounds__``, so ptxas holds its registers to what
+# a CTA of that size can have; shared memory is checked per launch.
 LIBRARY = {"loads": 0, "seconds": 0.0, "ptxas": ""}
 
 _libs: dict = {}
@@ -174,18 +183,30 @@ def _bind(stem: str, lib):
     vp, ci, cf, ll = (ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
                       ctypes.c_longlong)
     if stem == "pointwise_conv_fwd":
-        lib.pw_conv_fwd.argtypes = [vp] * 10 + [ci] * 5 + [cf, cf, ci, vp]
-        lib.pw_conv_fwd.restype = ci
+        lib.pw_conv_fwd_means.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci,
+                                                                vp]
+        lib.pw_conv_fwd_means.restype = ci
+        lib.pw_conv_fwd_product.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 4 \
+            + [vp]
+        lib.pw_conv_fwd_product.restype = ci
         lib.pw_conv_smem_bytes.argtypes = [ci, ci]
         lib.pw_conv_smem_bytes.restype = ll
+        lib.pw_conv_pack_elems.argtypes = [ci] * 4
+        lib.pw_conv_pack_elems.restype = ll
         lib.pw_conv_tile.restype = ci
+        lib.pw_conv_max_width.restype = ci
         if lib.pw_conv_tile() != TILE:
             raise RuntimeError(f"kernel TILE {lib.pw_conv_tile()} != {TILE}")
+        if lib.pw_conv_max_width() != MAX_WIDTH:
+            raise RuntimeError(f"kernel MAX_WIDTH {lib.pw_conv_max_width()} "
+                               f"!= {MAX_WIDTH}")
     elif stem == "pointwise_conv_dw":
-        lib.pw_conv_dw.argtypes = [vp] * 10 + [ci] * 7 + [cf, cf, ci, vp]
+        lib.pw_conv_dw.argtypes = [vp] * 11 + [ci] * 7 + [cf, cf, ci, vp]
         lib.pw_conv_dw.restype = ci
         lib.pw_dw_smem_bytes.argtypes = [ci, ci]
         lib.pw_dw_smem_bytes.restype = ll
+        lib.pw_dw_pack_elems.argtypes = [ci] * 4
+        lib.pw_dw_pack_elems.restype = ll
     elif stem == "pointwise_conv_counts":
         lib.pw_conv_counts.argtypes = [vp] * 5 + [ci] * 3 + [cf, cf, vp]
         lib.pw_conv_counts.restype = ci
@@ -307,36 +328,129 @@ def _smem(need, what):
                          f"(limit {_MAX_SMEM})")
 
 
-def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
-             tile_idx=None, cnt_in=None):
-    """Forward conv (see the module docstring); with ``cnt_in`` the means
-    divide by those external counts.  Launches the CUDA kernel on CUDA
-    tensors, runs ``conv_fwd_plain`` on CPU tensors."""
+def _width(cin, cout=None):
+    for name, n in (("Cin", cin), ("Cout", cout)):
+        if n is not None and n > MAX_WIDTH:
+            raise ValueError(f"{name}={n} is wider than the {MAX_WIDTH} "
+                             f"channels the forward and dW kernels take")
+
+
+def _check_means(ctr, pts, feats, tile_ptr, tile_idx, cnt_in):
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    if cnt_in is not None:
+        _check_counts(cnt_in, B, Ncp, "cnt_in")
+    if feats.ndim != 3 or feats.shape[:2] != (B, Mp) \
+            or feats.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"feats must be float32 or bfloat16 (B={B}, Mp={Mp}, "
+                         f"Cin), got {feats.dtype} {tuple(feats.shape)}")
+    return B, Ncp, Mp, feats.shape[2]
+
+
+def _pack_scratch(lib_elems, cin, bf16, B, Mp, dev):
+    """The walk's packed-feature scratch (bf16 terms of the features)."""
+    return torch.empty(lib_elems(cin, bf16, B, Mp), dtype=torch.bfloat16,
+                       device=dev)
+
+
+def conv_fwd_means(ctr, pts, feats, radius: float, tile_ptr=None,
+                   tile_idx=None, cnt_in=None):
+    """The forward's means walk: (xbar (B*Ncp, 27*Cin) in the features'
+    type, the means per cell divided by max(cnt, 1) or by max(cnt_in, 1) and
+    rounded; cnt (B, Ncp, 27) f32, the walk's own counts).  On a CUDA tensor
+    it launches the tensor-core walk (xbar is then a view of a workspace
+    whose rows are padded to a multiple of 8), on a CPU tensor it runs
+    ``conv_fwd_means_plain``."""
     if ctr.device.type == "cpu":
-        return conv_fwd_plain(ctr, pts, feats, w, bias, radius, tile_ptr,
-                              tile_idx, cnt_in)
+        return conv_fwd_means_plain(ctr, pts, feats, radius, tile_ptr,
+                                    tile_idx, cnt_in)
     if ctr.device.type != "cuda":
         raise ValueError(f"unsupported device {ctr.device}")
-    B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
-                                   tile_idx, cnt_in)
-    _check_device([ctr, pts, feats, w, bias, tile_ptr, tile_idx, cnt_in],
-                  ctr.device)
+    B, Ncp, Mp, cin = _check_means(ctr, pts, feats, tile_ptr, tile_idx,
+                                   cnt_in)
+    _check_device([ctr, pts, feats, tile_ptr, tile_idx, cnt_in], ctr.device)
+    _width(cin)
     lib = build_libraries()["pointwise_conv_fwd"]
     bf16 = int(feats.dtype == torch.bfloat16)
     _smem(lib.pw_conv_smem_bytes(cin, bf16), f"Cin={cin}")
-    y = torch.empty((B, Ncp, cout), dtype=torch.float32, device=ctr.device)
-    cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32,
-                      device=ctr.device)
-    with torch.cuda.device(ctr.device):
+    dev = ctr.device
+    k = N_CELLS * cin
+    ldx = round_up(k, 8)
+    xbar = torch.empty((B * Ncp, ldx), dtype=feats.dtype, device=dev)
+    cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32, device=dev)
+    packed = _pack_scratch(lib.pw_conv_pack_elems, cin, bf16, B, Mp, dev)
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("pw_conv_fwd", lib.pw_conv_fwd(
-            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), y.data_ptr(),
-            cnt.data_ptr(), _ptr(cnt_in), B, Ncp, Mp, cin, cout,
+        _launch("pw_conv_fwd_means", lib.pw_conv_fwd_means(
+            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(),
+            packed.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), _ptr(cnt_in),
+            cnt.data_ptr(), xbar.data_ptr(), ldx, B, Ncp, Mp, cin,
             float(radius), _inv_cell(radius), bf16, stream))
     LAUNCHES[("fwd_ext_" if cnt_in is not None else "fwd_")
              + ("dense" if tile_ptr is None else "csr")] += 1
-    return y, cnt
+    return xbar[:, :k], cnt
+
+
+def conv_fwd_product(xbar, w, bias):
+    """y (rows, Cout) f32 = xbar . W + bias: xbar (rows, 27*Cin) in W's type
+    (rows a multiple of 64; unit column stride), W (27, Cin, Cout), bias
+    (Cout,) f32 added after the f32 sum.  Launches the product kernel on
+    CUDA tensors (tensor cores in bf16), runs ``conv_fwd_product_plain`` on
+    CPU tensors."""
+    if xbar.device.type == "cpu":
+        return conv_fwd_product_plain(xbar, w, bias)
+    if xbar.device.type != "cuda":
+        raise ValueError(f"unsupported device {xbar.device}")
+    cin, cout = w.shape[1], w.shape[2]
+    k = N_CELLS * cin
+    rows = xbar.shape[0]
+    if w.shape != (N_CELLS, cin, cout) or xbar.ndim != 2 \
+            or xbar.shape[1] != k or rows % TILE:
+        raise ValueError(f"xbar {tuple(xbar.shape)} / w {tuple(w.shape)} do "
+                         f"not match (rows % {TILE} == 0, 27*Cin) x "
+                         f"(27, Cin, Cout)")
+    if xbar.dtype != w.dtype or w.dtype not in (torch.float32,
+                                                torch.bfloat16):
+        raise TypeError(f"xbar and w must share float32 or bfloat16, got "
+                        f"{xbar.dtype} and {w.dtype}")
+    if bias.shape != (cout,) or bias.dtype != torch.float32:
+        raise ValueError(f"bias must be float32 ({cout},), got {bias.dtype} "
+                         f"{tuple(bias.shape)}")
+    bf16 = int(w.dtype == torch.bfloat16)
+    if xbar.stride(1) != 1 or xbar.stride(0) % (8 if bf16 else 1):
+        raise ValueError("xbar rows must be contiguous, their stride a "
+                         "multiple of 8 in bfloat16")
+    _check_device([w, bias], xbar.device)     # xbar's strides checked above
+    _width(cin, cout)
+    lib = build_libraries()["pointwise_conv_fwd"]
+    wk = w.reshape(k, cout)
+    ldw = round_up(cout, 8) if bf16 else cout
+    if ldw != cout:
+        wk = torch.nn.functional.pad(wk, (0, ldw - cout))
+    y = torch.empty((rows, cout), dtype=torch.float32, device=xbar.device)
+    with torch.cuda.device(xbar.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_fwd_product", lib.pw_conv_fwd_product(
+            xbar.data_ptr(), xbar.stride(0), wk.data_ptr(), ldw,
+            bias.data_ptr(), y.data_ptr(), rows, k, cout, bf16, stream))
+    LAUNCHES["fwd_product"] += 1
+    return y
+
+
+def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
+             tile_idx=None, cnt_in=None):
+    """Forward conv (see the module docstring); with ``cnt_in`` the means
+    divide by those external counts.  On CUDA tensors the means walk and
+    the product kernel (``conv_fwd_means``, ``conv_fwd_product``), on CPU
+    tensors ``conv_fwd_plain``."""
+    if ctr.device.type == "cpu":
+        return conv_fwd_plain(ctr, pts, feats, w, bias, radius, tile_ptr,
+                              tile_idx, cnt_in)
+    B, Ncp, _, _, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
+                                tile_idx, cnt_in)
+    _width(w.shape[1], cout)
+    xbar, cnt = conv_fwd_means(ctr, pts, feats, radius, tile_ptr, tile_idx,
+                               cnt_in)
+    return conv_fwd_product(xbar, w, bias).view(B, Ncp, cout), cnt
 
 
 def conv_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
@@ -386,13 +500,16 @@ def conv_dw(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
     B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
                                       tile_idx)
     _check_device([ctr, pts, feats, g, cnt, tile_ptr, tile_idx], ctr.device)
+    _width(cin)
     lib = build_libraries()["pointwise_conv_dw"]
     bf16 = int(feats.dtype == torch.bfloat16)
     _smem(lib.pw_dw_smem_bytes(cin, bf16), f"Cin={cin}")
     dev = ctr.device
     k = N_CELLS * cin
     splits, chunk = _dw_splits(B * Ncp, k, cout)
-    # workspaces: the rounded cell means and the product's partial sums
+    # workspaces: the packed features, the rounded cell means and the
+    # product's partial sums
+    packed = _pack_scratch(lib.pw_dw_pack_elems, cin, bf16, B, Mp, dev)
     xbar = torch.empty((B * Ncp, k), dtype=feats.dtype, device=dev)
     part = (torch.empty((splits, k, cout), dtype=torch.float32, device=dev)
             if splits > 1 else None)
@@ -401,9 +518,10 @@ def conv_dw(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
         stream = torch.cuda.current_stream().cuda_stream
         _launch("pw_conv_dw", lib.pw_conv_dw(
             ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), g.data_ptr(),
-            cnt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), xbar.data_ptr(),
-            _ptr(part), dw.data_ptr(), B, Ncp, Mp, cin, cout, splits, chunk,
-            float(radius), _inv_cell(radius), bf16, stream))
+            cnt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx),
+            packed.data_ptr(), xbar.data_ptr(), _ptr(part), dw.data_ptr(), B,
+            Ncp, Mp, cin, cout, splits, chunk, float(radius),
+            _inv_cell(radius), bf16, stream))
     LAUNCHES["dw_dense" if tile_ptr is None else "dw_csr"] += 1
     return dw
 
@@ -496,6 +614,26 @@ def _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx):
     return sums, cnt
 
 
+def conv_fwd_means_plain(ctr, pts, feats, radius: float, tile_ptr=None,
+                         tile_idx=None, cnt_in=None):
+    """Plain PyTorch version of ``conv_fwd_means``: f32 cell sums and
+    counts, the sums divided in f32 by max(cnt, 1) (or max(cnt_in, 1)) and
+    rounded to the features' type; (xbar (B*Ncp, 27*Cin), cnt)."""
+    B, Ncp, _, cin = _check_means(ctr, pts, feats, tile_ptr, tile_idx,
+                                  cnt_in)
+    sums, cnt = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
+    div = cnt if cnt_in is None else cnt_in
+    xbar = (sums / torch.clamp_min(div, 1.0)[..., None]).to(feats.dtype)
+    return xbar.reshape(B * Ncp, N_CELLS * cin), cnt
+
+
+def conv_fwd_product_plain(xbar, w, bias):
+    """Plain PyTorch version of ``conv_fwd_product``: the f32 product of
+    xbar and W, then the f32 bias."""
+    cin, cout = w.shape[1], w.shape[2]
+    return xbar.float() @ w.float().reshape(N_CELLS * cin, cout) + bias
+
+
 def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
                    tile_idx=None, cnt_in=None):
     """Plain PyTorch version of ``conv_fwd``: the same padded inputs, the
@@ -503,15 +641,11 @@ def conv_fwd_plain(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
     type, f32 cell sums and counts, means divided in f32 by the counts or
     by ``cnt_in`` and rounded to the matmul type, f32 product, f32
     bias)."""
-    B, Ncp, Mp, cin, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
-                                   tile_idx, cnt_in)
-    sums, cnt = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
-    div = cnt if cnt_in is None else cnt_in
-    xbar = sums / torch.clamp_min(div, 1.0)[..., None]
-    xbar = xbar.to(feats.dtype).float()
-    y = xbar.reshape(B, Ncp, N_CELLS * cin) @ w.float().reshape(
-        N_CELLS * cin, cout)
-    return y + bias, cnt
+    B, Ncp, _, _, cout = _check(ctr, pts, feats, w, bias, tile_ptr,
+                                tile_idx, cnt_in)
+    xbar, cnt = conv_fwd_means_plain(ctr, pts, feats, radius, tile_ptr,
+                                     tile_idx, cnt_in)
+    return conv_fwd_product_plain(xbar, w, bias).view(B, Ncp, cout), cnt
 
 
 def conv_counts_plain(ctr, pts, radius: float, tile_ptr=None,
@@ -529,11 +663,10 @@ def conv_dw_plain(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
     matmul type, and their f32 product over all centers."""
     B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
                                       tile_idx)
-    sums, _ = _cell_sums_plain(ctr, pts, feats, radius, tile_ptr, tile_idx)
-    xbar = (sums / torch.clamp_min(cnt, 1.0)[..., None]).to(feats.dtype)
+    xbar, _ = conv_fwd_means_plain(ctr, pts, feats, radius, tile_ptr,
+                                   tile_idx, cnt_in=cnt)
     gm = g.to(feats.dtype).float()
-    dw = xbar.float().reshape(B * Ncp, N_CELLS * cin).T @ gm.reshape(
-        B * Ncp, cout)
+    dw = xbar.float().T @ gm.reshape(B * Ncp, cout)
     return dw.reshape(N_CELLS, cin, cout)
 
 

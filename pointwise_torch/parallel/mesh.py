@@ -34,6 +34,8 @@ import os
 import torch
 import torch.distributed as dist
 
+from pointwise_torch import resolve_device
+
 AXES = ("data", "space")
 
 
@@ -75,14 +77,16 @@ def init_distributed(backend: str | None = None, device=None) -> bool:
     the card).  Returns True when the process group is (now) initialized,
     False when no launcher configured one: a no-op, so CLIs can call it
     unconditionally.  Reads no other variable and contacts nothing but the
-    address it was given."""
+    address it was given.  Without ``backend`` the backend follows
+    ``device``, which defaults to the card (``resolve_device``: raises with
+    no card; pass ``device='cpu'`` for gloo on the CPU)."""
     if dist.is_initialized():
         return True
     if not all(k in os.environ for k in ("RANK", "WORLD_SIZE",
                                          "MASTER_ADDR")):
         return False
-    dist.init_process_group(backend or default_backend(device or "cpu"),
-                            init_method="env://",
+    backend = backend or default_backend(resolve_device(device))
+    dist.init_process_group(backend, init_method="env://",
                             rank=int(os.environ["RANK"]),
                             world_size=int(os.environ["WORLD_SIZE"]))
     return True
@@ -93,8 +97,9 @@ def make_mesh(data: int | None = None, space: int = 1, *, device=None,
               timeout: datetime.timedelta | None = None) -> Mesh:
     """The (data x space) mesh over every rank of the default process group
     (which must be initialized).  ``data=None`` takes the ranks that
-    ``space`` leaves; ``device`` is this rank's device (default CPU) and
-    picks the default backend."""
+    ``space`` leaves; ``device`` is this rank's device (default the card,
+    through ``resolve_device``, which raises with no card: pass
+    ``device='cpu'`` for the CPU) and picks the default backend."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(torchrun and init_distributed(), or "
@@ -107,7 +112,7 @@ def make_mesh(data: int | None = None, space: int = 1, *, device=None,
     if data * space != n:
         raise ValueError(f"mesh {data}x{space} needs {data * space} ranks, "
                          f"the process group has {n}")
-    device = torch.device("cpu" if device is None else device)
+    device = resolve_device(device)
     backend = backend or default_backend(device)
     rank = dist.get_rank()
     kw = {"backend": backend}

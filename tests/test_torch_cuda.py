@@ -140,8 +140,10 @@ def test_launch_counters_and_gradient(cuda):
                        radius=0.2, csr=False)
         pointwise_conv(p["points"], p["features"], p["weights"], p["bias"],
                        radius=0.2, csr=True)
-    assert tk.LAUNCHES == dict(tk.LAUNCHES, fwd_dense=1, fwd_csr=1)
-    assert sum(tk.LAUNCHES.values()) == 2
+    # each forward: one means walk of its mode and one product
+    assert tk.LAUNCHES == dict(tk.LAUNCHES, fwd_dense=1, fwd_csr=1,
+                               fwd_product=2)
+    assert sum(tk.LAUNCHES.values()) == 4
     for csr in (False, True):
         f = p["features"].clone().requires_grad_(True)
         w = p["weights"].clone().requires_grad_(True)
@@ -233,3 +235,98 @@ def test_ext_partials_sum_to_forward(cuda, precision):
             total = y if total is None else total + y
         torch.cuda.synchronize()
         _close(total, want, precision)
+
+
+def _all_cells_block(dev, cin, seed=0):
+    """One 64 x 64 tile pair whose first 16 x 16 block of (center,
+    candidate) pairs holds all 27 cells: 16 candidates on the 3 x 3 x 3
+    offset grid (spacing 0.4, r = 0.75, one offset per cell) and 3 centers
+    shifted by 0, 0.4 and 0.8 along x; the rest is sentinel padding (the
+    CPU mirror's case, tests/test_torch_walk.py)."""
+    offs = np.array([(x, y, z) for x in (-0.4, 0.0, 0.4)
+                     for y in (-0.4, 0.0, 0.4) for z in (-0.4, 0.0, 0.4)],
+                    np.float32)
+    pts = np.full((1, tk.TILE, 3), tk.SENTINEL, np.float32)
+    pts[0, :16] = offs[:16]
+    ctr = np.full((1, tk.TILE, 3), -tk.SENTINEL, np.float32)
+    ctr[0, :3] = [(0.0, 0.0, 0.0), (-0.4, 0.0, 0.0), (-0.8, 0.0, 0.0)]
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)  # noqa
+    return (t(ctr), t(pts), t(rng.standard_normal((1, tk.TILE, cin))),
+            t(rng.standard_normal((27, cin, 16)) / np.sqrt(27 * cin)),
+            t(rng.standard_normal(16) * 0.1))
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_block_with_all_27_cells(cuda, precision):
+    # the per-block cell skip must drop no cell of a block that holds all
+    ctr, pts, feats, w, bias = _all_cells_block(cuda, 124)
+    dt = getattr(torch, precision)
+    kw = dict(ctr=ctr, pts=pts, feats=feats.to(dt), w=w.to(dt), bias=bias,
+              radius=0.75)
+    y, cnt = tk.conv_fwd(**kw)
+    y_p, cnt_p = tk.conv_fwd_plain(**kw)
+    g = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (1, tk.TILE, 16)).astype(np.float32)).to(cuda)
+    dw_args = (ctr, pts, kw["feats"], g, cnt, 0.75)
+    dw, dw_p = tk.conv_dw(*dw_args), tk.conv_dw_plain(*dw_args)
+    torch.cuda.synchronize()
+    assert torch.equal(cnt, cnt_p)
+    assert bool((cnt[0, :3].sum(0) > 0).all())       # all 27 cells
+    _close(y, y_p, precision)
+    _close(dw, dw_p, precision)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cin", [3, 6, 124, tk.MAX_WIDTH])
+def test_widths_walks_and_repeats(cuda, cin, precision):
+    # forward and dW at each width: against the plain versions, the dense
+    # and CSR walks identical bit for bit, two runs identical, counts equal
+    # to the counts kernel's
+    p = _scene_inputs(cuda, b=1, n=700, nc=600, cin=cin,
+                      cout=tk.MAX_WIDTH if cin == tk.MAX_WIDTH else 124)
+    outs = {}
+    for csr in (False, True):
+        kw, _ = conv_layout(p["points"], p["features"], p["weights"],
+                            p["bias"], radius=0.3, mask=p["mask"],
+                            centers=p["centers"],
+                            center_mask=p["center_mask"],
+                            precision=precision, csr=csr)
+        y, cnt = tk.conv_fwd(**kw)
+        y2, _ = tk.conv_fwd(**kw)
+        y_p, cnt_p = tk.conv_fwd_plain(**kw)
+        counts = tk.conv_counts(kw["ctr"], kw["pts"], 0.3, kw["tile_ptr"],
+                                kw["tile_idx"])
+        g = torch.from_numpy(np.random.RandomState(1).standard_normal(
+            tuple(y.shape)).astype(np.float32)).to(cuda)
+        dw_args = (kw["ctr"], kw["pts"], kw["feats"], g, cnt, 0.3,
+                   kw["tile_ptr"], kw["tile_idx"])
+        dw, dw2 = tk.conv_dw(*dw_args), tk.conv_dw(*dw_args)
+        dw_p = tk.conv_dw_plain(*dw_args)
+        torch.cuda.synchronize()
+        assert torch.equal(cnt, cnt_p) and torch.equal(cnt, counts)
+        assert cnt.sum() > 0
+        assert torch.equal(y, y2) and torch.equal(dw, dw2)
+        _close(y, y_p, precision)
+        _close(dw, dw_p, precision)
+        outs[csr] = (y, dw)
+    for a, b in zip(outs[False], outs[True]):
+        assert torch.equal(a, b)
+
+
+def test_width_refused_above_the_limit(cuda):
+    wide = tk.MAX_WIDTH + 1
+    p = _scene_inputs(cuda, b=1, n=200, nc=150, cin=wide, cout=8)
+    kw, _ = conv_layout(p["points"], p["features"], p["weights"], p["bias"],
+                        radius=0.3, precision="bfloat16")
+    with pytest.raises(ValueError, match="wider than"):
+        tk.conv_fwd(**kw)
+    g = torch.zeros((1, kw["ctr"].shape[1], 8), device=cuda)
+    cnt = torch.zeros((1, kw["ctr"].shape[1], 27), device=cuda)
+    with pytest.raises(ValueError, match="wider than"):
+        tk.conv_dw(kw["ctr"], kw["pts"], kw["feats"], g, cnt, 0.3)
+    p = _scene_inputs(cuda, b=1, n=200, nc=150, cin=8, cout=wide)
+    kw, _ = conv_layout(p["points"], p["features"], p["weights"], p["bias"],
+                        radius=0.3, precision="bfloat16")
+    with pytest.raises(ValueError, match="Cout=1025 is wider"):
+        tk.conv_fwd(**kw)

@@ -228,3 +228,29 @@ def test_launch_rules_without_a_launcher(monkeypatch):
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="needs a card of its own"):
         cli._rank_device("cuda")
+
+
+def test_mesh_defaults_to_the_card(monkeypatch):
+    # the port's rule: with no device the mesh (and the backend a launch
+    # joins with) is the card's, and without one they raise and name the
+    # CPU option instead of falling back to gloo on the CPU
+    import torch.distributed as dist
+
+    from pointwise_torch.parallel import make_mesh
+    from pointwise_torch.parallel import mesh as mesh_mod
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for k, v in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                 ("MASTER_ADDR", "localhost")):
+        monkeypatch.setenv(k, v)
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_distributed()
+    assert not dist.is_initialized()
+    # a joined one-rank group, as far as make_mesh looks before it builds
+    monkeypatch.setattr(mesh_mod.dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(mesh_mod.dist, "get_world_size", lambda group=None: 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh(space=1, backend="gloo")
