@@ -28,7 +28,8 @@ Phases, each printing one JSON line:
            phase's inputs (gradient g from a numpy seed), dense and CSR
            walks, f32 and bf16; two launches give identical bits and the
            two walks give identical bits; loss.backward() through
-           pointwise_conv on CUDA tensors launches dw_* and dx_*; dW and
+           pointwise_conv on CUDA tensors launches each gradient's walk
+           (dw_*, dx_*) and product (dw_product, dx_product); dW and
            dX with the external counts of the parity phase vs their plain
            versions, bits identical run to run;
   train    the train CLI's function in-process at full width, 20 steps
@@ -73,9 +74,13 @@ Phases, each printing one JSON line:
            alone (the means walk and the product, the product's own rows
            against its plain version); dW and dX on the conv inputs of the
            train phase (CSR: segmentation, dense: classification) with g
-           from a numpy seed.
-Then the ``kernels`` line (eleven kernels), the nvidia-smi line and, last,
-the result line.
+           from a numpy seed, each also as its two kernels alone (dW's
+           means walk and product, dX's sums walk and product, each
+           product's own rows against its plain version).  Each product row
+           has the ms of one PyTorch call of the same function beside it
+           (``library_ms``; cuBLAS, never called by the port).
+Then the ``kernels`` line (thirteen kernels), the nvidia-smi line and,
+last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.
 """
@@ -99,11 +104,13 @@ _CSRC = "pointwise_torch/kernels/csrc"
 KERNELS = {     # name: (the TPU kernel it replaces, its source here)
     "fwd_dense": (f"{_PALLAS}:320", f"{_CSRC}/pointwise_conv_fwd.cu"),
     "fwd_csr": (f"{_PALLAS}:599", f"{_CSRC}/pointwise_conv_fwd.cu"),
-    "fwd_product": (f"{_PALLAS}:297", f"{_CSRC}/pointwise_conv_fwd.cu"),
+    "fwd_product": (f"{_PALLAS}:297", f"{_CSRC}/pointwise_conv_product.cuh"),
     "dw_dense": (f"{_PALLAS}:396", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dw_csr": (f"{_PALLAS}:636", f"{_CSRC}/pointwise_conv_dw.cu"),
+    "dw_product": (f"{_PALLAS}:434", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dx_dense": (f"{_PALLAS}:527", f"{_CSRC}/pointwise_conv_dx.cu"),
     "dx_csr": (f"{_PALLAS}:748", f"{_CSRC}/pointwise_conv_dx.cu"),
+    "dx_product": (f"{_PALLAS}:476", f"{_CSRC}/pointwise_conv_product.cuh"),
     "counts_dense": (f"{_PALLAS}:1317", f"{_CSRC}/pointwise_conv_counts.cu"),
     "counts_csr": (f"{_PALLAS}:1317", f"{_CSRC}/pointwise_conv_counts.cu"),
     "fwd_ext_dense": (f"{_PALLAS}:1366", f"{_CSRC}/pointwise_conv_fwd.cu"),
@@ -320,7 +327,8 @@ def phase_grad(dev, sizes=(4096, 8192), batch=4):
     torch.cuda.synchronize()
     launches = dict(tk.LAUNCHES)
     if any(launches[k] != 1 for k in ("dw_dense", "dw_csr", "dx_dense",
-                                      "dx_csr")):
+                                      "dx_csr")) \
+            or launches["dw_product"] != 2 or launches["dx_product"] != 2:
         raise AssertionError(f"backward did not launch the kernels: "
                              f"{launches}")
     emit({"phase": "grad", "ok": True, "cases": cases,
@@ -551,15 +559,17 @@ def device_busy_s(prof):
 
 
 # device-time families of the traces: (name, substring of the kernel name)
-KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "pw_fwd_product"),
+KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "FwdProduct"),
                    ("dw_walk", "DwMeans"), ("dw_product", "pw_dw_product"),
-                   ("dw_reduce", "pw_dw_reduce"), ("dx", "pw_dx_kernel"),
+                   ("dw_reduce", "pw_dw_reduce"), ("dx_walk", "DxSums"),
+                   ("dx_product", "DxProduct"),
                    ("counts", "pw_counts_kernel"))
 
 
 def kernel_ms(ops, dev_us, per=1):
     """Device ms of each kernel family in a trace's ops, over ``per``
-    (steps or requests); a walk family includes its feature-pack kernel."""
+    (steps or requests); a walk family includes its feature-pack kernel
+    (and dX's its scale kernel), dW's product its g-rounding kernel."""
     return {fam: sum(dev_us(e) for e in ops if key in e.key) / 1e3 / per
             for fam, key in KERNEL_FAMILIES}
 
@@ -645,7 +655,10 @@ def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
         if not (finite and rec["grad_norm_min"] > 0 and changed and repeat
                 and len(metrics) == steps
                 and all(launches[k] > 0 for k in need)
-                and all(per_layer[k] == launches[k] for k in need)):
+                and all(per_layer[k] == launches[k] for k in need)
+                # one product per walk
+                and launches["dw_product"] == launches[need[0]]
+                and launches["dx_product"] == launches[need[1]]):
             raise AssertionError(f"training failed: {rec}, hooks saw "
                                  f"{per_layer}")
         summaries[config] = rec
@@ -948,11 +961,12 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
     wall = time.perf_counter() - t0
     launches = collections.Counter()
     for name, cfg, need in (
-            ("gather", seg, ("fwd_csr", "dw_csr", "dx_csr")),
+            ("gather", seg, ("fwd_csr", "dw_csr", "dx_csr", "dw_product",
+                             "dx_product")),
             ("seg_ring", seg, ("counts_csr", "fwd_ext_dense", "dw_dense",
-                               "dx_dense")),
+                               "dx_dense", "dw_product", "dx_product")),
             ("cls_ring", cls, ("counts_dense", "fwd_ext_dense", "dw_dense",
-                               "dx_dense"))):
+                               "dx_dense", "dw_product", "dx_product"))):
         runs = [r[name] for r in res]
         got = collections.Counter()
         for r in runs:
@@ -1050,6 +1064,39 @@ def library_product(xbar, w, bias):
                 "mm(out_dtype=float32) + bias")
 
 
+def _mm_f32(a, b):
+    """One cuBLAS product a . b with an f32 result (bf16 operands accumulate
+    in f32, as in the kernels): (a call with no arguments, its name)."""
+    import torch
+
+    if a.dtype != torch.bfloat16:
+        return (lambda: torch.mm(a, b)), "mm"
+    try:
+        torch.mm(a, b, out_dtype=torch.float32)
+        return ((lambda: torch.mm(a, b, out_dtype=torch.float32)),
+                "mm(out_dtype=float32)")
+    except (RuntimeError, TypeError):
+        # this torch's mm takes no out_dtype: the same function in f32
+        af, bf = a.float(), b.float()
+        return (lambda: torch.mm(af, bf)), "mm of the operands in float32"
+
+
+def library_dw_product(xbar, g):
+    """dW's product as one cuBLAS call, xbar^T . round(g) with an f32
+    result; g is rounded before the timed call.  Timed beside the kernel
+    only; the port never calls it."""
+    call, name = _mm_f32(xbar.T, g.to(xbar.dtype))
+    shape = (27, xbar.shape[1] // 27, g.shape[1])
+    return (lambda: call().view(shape)), name
+
+
+def library_dx_product(z, w):
+    """dX's product as one cuBLAS call, Z . W^T per cell with an f32
+    result; W^T is laid out before the timed call.  Timed beside the kernel
+    only; the port never calls it."""
+    return _mm_f32(z, w.transpose(1, 2).reshape(-1, w.shape[1]))
+
+
 def _time_row(name, layer, mod, kw, fn, plain, args, inputs, pairs, width,
               rows, library=None, **extra):
     """One kernel call at a recorded shape: its output against the plain
@@ -1133,14 +1180,42 @@ def phase_times(calls, per_step):
                 continue
             dw_args, dx_args = grad_inputs(kw, seed=layer, nc=nc)
             pairs = float(dw_args[4].sum())
+            ctr, pts, feats, g, cnt, radius, ptr, idx = dw_args
+            w, ptr_t, idx_t = dx_args[4], dx_args[6], dx_args[7]
+            # each gradient's two kernels, each alone
+            means = (ctr, pts, feats, cnt, radius, ptr, idx)
+            sums = (ctr, pts, g, cnt, radius, ptr_t, idx_t, w.dtype)
+            xbar, z = tk.conv_dw_means(*means), tk.conv_dx_sums(*sums)
+            g2 = g.view(-1, cout)
+            splits = {
+                "dw": dict(walk_ms=cuda_time_ms(
+                    lambda: tk.conv_dw_means(*means), reps=5),
+                    product_ms=cuda_time_ms(
+                        lambda: tk.conv_dw_product(xbar, g2), reps=5)),
+                "dx": dict(walk_ms=cuda_time_ms(
+                    lambda: tk.conv_dx_sums(*sums), reps=5),
+                    product_ms=cuda_time_ms(
+                        lambda: tk.conv_dx_product(z, w), reps=5))}
             for kname, fn, plain, a, ins, width, n in (
                     (f"dw_{walk}", tk.conv_dw, tk.conv_dw_plain, dw_args,
                      list(dw_args[:5]) + lists, cin, centers_n),
                     (f"dx_{walk}", tk.conv_dx, tk.conv_dx_plain, dx_args,
                      list(dx_args[:5]) + list(dx_args[6:]), cout, cands_n)):
+                per = per_step.get((kname, layer), 0.0)
                 rows.append(_time_row(
                     kname, layer, mod, kw, fn, plain, a, ins, pairs, width, n,
-                    launches_per_step=per_step.get((kname, layer), 0.0)))
+                    launches_per_step=per, **splits[kname[:2]]))
+            for kname, fn, plain, a, n, lib, walk_name in (
+                    ("dw_product", tk.conv_dw_product,
+                     tk.conv_dw_product_plain, (xbar, g2), centers_n,
+                     library_dw_product, f"dw_{walk}"),
+                    ("dx_product", tk.conv_dx_product,
+                     tk.conv_dx_product_plain, (z, w), cands_n,
+                     library_dx_product, f"dx_{walk}")):
+                rows.append(_time_row(
+                    kname, layer, mod, kw, fn, plain, a, list(a), 0.0, 0, n,
+                    library=lib, walk=walk,
+                    launches_per_step=per_step.get((walk_name, layer), 0.0)))
     return rows
 
 
@@ -1288,6 +1363,8 @@ def main():
         for k in ("dw", "dx"):
             name = f"{k}_{rec['walk']}"
             launches[name] = rec["launches"][name]
+    for name in ("dw_product", "dx_product"):    # both training runs
+        launches[name] = sum(rec["launches"][name] for rec in trained.values())
     phase_trace(dev)
     phase_exact(dev)
     # the ring's launches: the served-scale split (a) for the CSR walk of
@@ -1318,6 +1395,10 @@ def main():
             "layer": top["layer"], "precision": top["precision"],
             **{k: top[k] for k in ("walk_ms", "product_ms", "walk",
                                    "library_call") if k in top}})
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{idle}")
     print(json.dumps({"kernels": kernels}), flush=True)
     emit({"phase": "done", "seconds": time.perf_counter() - t_all})
     print(smi, flush=True)

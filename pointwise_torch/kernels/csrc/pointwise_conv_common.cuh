@@ -2,14 +2,11 @@
 // kernels (pointwise_conv_{fwd,dw,dx,counts}.cu).
 //
 //   pair_code     the cell code of one (center, candidate) pair, bit for bit
-//                 the TPU's _pairwise_code (pointwise_conv_pallas.py:140);
-//   block_product out[i][:] = A[i][:] . W (+ bias) for the block's CPB rows,
-//                 the (27*Cout) x Cin product the dX kernel ends with (f32
-//                 FMAs on the CUDA cores; the forward and dW run their
-//                 products on tensor cores, pointwise_conv_walk.cuh).
+//                 the TPU's _pairwise_code (pointwise_conv_pallas.py:140).
 //
-// The forward's and dW's means walk (tensor cores) lives in
-// pointwise_conv_walk.cuh; dX and counts keep their CUDA-core walks.
+// The tensor-core walk of the forward, dW and dX lives in
+// pointwise_conv_walk.cuh, the product of the forward and dX in
+// pointwise_conv_product.cuh; the counts kernel keeps its CUDA-core walk.
 //
 // Exactness of the cell code (_pairwise_code :140-168): rel = candidate -
 // center in f32; d2 = rx*rx + ry*ry + rz*rz summed in that order; valid iff
@@ -31,9 +28,8 @@ namespace pw {
 
 constexpr int N_CELLS = 27;
 constexpr int TILE = 64;      // walk tile and row tile (points)
-constexpr int CPB = 8;        // rows (centers or candidates) per block, one warp each
+constexpr int CPB = 8;        // centers per counts block, one warp each
 constexpr int THREADS = CPB * 32;
-constexpr int HALF = THREADS / 2;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -47,12 +43,6 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// v rounded to the matmul type T and back (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_like(float v) {
-  return to_f32(from_f32<T>(v));
 }
 
 __device__ __forceinline__ int axis_cell(float rel, float radius, float inv) {
@@ -76,52 +66,6 @@ __device__ __forceinline__ int pair_code(float qx, float qy, float qz, float px,
            + axis_cell(rz, radius, inv);
   }
   return code;
-}
-
-// out[i * out_stride + o] = sum_kc A[i*K + kc] * W[kc*N + o] (+ bias[o]) for
-// the block's CPB rows i.  Thread t owns output column t % HALF (of each
-// HALF-wide column block) for all CPB rows over one half of the K reduction;
-// the two halves add in a fixed order, then the bias.  A lives in shared
-// memory; part holds CPB*HALF floats of shared scratch.
-template <typename T>
-__device__ void block_product(const float* A, const T* __restrict__ W,
-                              const float* __restrict__ bias, float* __restrict__ out,
-                              int out_stride, int K, int N, float* part) {
-  const int h = threadIdx.x / HALF;
-  const int kbeg = h == 0 ? 0 : K / 2;
-  const int kend = h == 0 ? K / 2 : K;
-  for (int o0 = 0; o0 < N; o0 += HALF) {
-    const int oo = threadIdx.x % HALF;
-    const int o = o0 + oo;
-    float acc[CPB];
-#pragma unroll
-    for (int i = 0; i < CPB; ++i) acc[i] = 0.f;
-    if (o < N) {
-      for (int kc = kbeg; kc < kend; ++kc) {
-        const float wv = to_f32(W[(size_t)kc * N + o]);
-#pragma unroll
-        for (int i = 0; i < CPB; ++i) acc[i] = fmaf(A[i * K + kc], wv, acc[i]);
-      }
-    }
-    if (h == 1) {
-#pragma unroll
-      for (int i = 0; i < CPB; ++i) part[i * HALF + oo] = acc[i];
-    }
-    __syncthreads();
-    if (h == 0 && o < N) {
-      if (bias != nullptr) {
-        const float bo = bias[o];
-#pragma unroll
-        for (int i = 0; i < CPB; ++i)
-          out[(size_t)i * out_stride + o] = (acc[i] + part[i * HALF + oo]) + bo;
-      } else {
-#pragma unroll
-        for (int i = 0; i < CPB; ++i)
-          out[(size_t)i * out_stride + o] = acc[i] + part[i * HALF + oo];
-      }
-    }
-    __syncthreads();
-  }
 }
 
 }  // namespace pw

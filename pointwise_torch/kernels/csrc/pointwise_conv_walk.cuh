@@ -1,6 +1,7 @@
-// pointwise_conv_walk.cuh — the tensor-core means walk shared by the forward
-// (pointwise_conv_fwd.cu) and the weight gradient (pointwise_conv_dw.cu),
-// and the PTX helpers (cp.async, ldmatrix, mma.sync) of both.
+// pointwise_conv_walk.cuh — the tensor-core walk shared by the forward
+// (pointwise_conv_fwd.cu), the weight gradient (pointwise_conv_dw.cu) and
+// the feature gradient (pointwise_conv_dx.cu), and the PTX helpers
+// (cp.async, ldmatrix, mma.sync) of all three.
 //
 // What it computes.  For every center i and cell k, the mean of the feature
 // rows of the in-ball candidates j with pair_code(i, j) == k, divided in f32
@@ -50,6 +51,23 @@
 // runs three MMAs per n8-tile against the same exact 0/1 plane.  bf16 mode
 // stages the features as they are (one term).
 //
+// dX (tag DxSums).  The same walk with the roles swapped, as the TPU's
+// _dx_kernel_resident_flip (:527) builds its planes with candidates as
+// rows: the rows are 16 candidates, the columns the centers of the
+// transposed tile list, the staged operand is round(g) (Cout wide), and
+// each plane's ones are replaced by the column's scale
+// s[k][i] = round(1/max(cnt[i][k], 1)) (the TPU's col_scale, _foreach_mask
+// :210-214).  A pre-pass (pw_walk_scale_kernel) writes the scales as bf16
+// [terms][B][27][Nc]; each live k-step stages the 16 scales of each of the
+// CTA's cells beside its g rows, and a lane ANDs its plane masks with the
+// two packed bf16 pairs of its columns (2tq, 2tq+1 and 2tq+8, 2tq+9).  The
+// cell code keeps the forward's operands, pair_code(candidate, center),
+// so a pair routes its gradient through the cell the forward binned it
+// into.  The epilogue writes round(Z) to the workspace with no division;
+// the per-cell product with W^T follows (pointwise_conv_product.cuh).  In
+// f32 mode s and g are each split into three exact bf16 terms: their nine
+// products are exact in f32.
+//
 // Order and bits.  Every (center, cell, channel) sum has one owner thread
 // and runs in the walk's tile order, so results repeat bit for bit; a tile
 // the CSR list drops holds no in-ball pair, so the dense walk skips every
@@ -66,6 +84,8 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "pointwise_conv_common.cuh"
 
 namespace pw {
@@ -75,10 +95,16 @@ constexpr int WALK_MAX_WARPS = 9;   // warps per walk CTA, at most
 constexpr int MAX_WIDTH = 1024;     // widest Cin (and forward Cout) accepted
 constexpr unsigned NO_CELL = 0xFFu;
 
-// Tags of the walk's two callers: the kernels' names (and so the traces)
-// tell the forward's walk from dW's.
+// Tags of the walk's three callers: the kernels' names (and so the traces)
+// tell the forward's walk from dW's and dX's.
 struct FwdMeans {};
 struct DwMeans {};
+struct DxSums {};
+
+template <typename Tag>
+struct IsDx { static constexpr bool value = false; };
+template <>
+struct IsDx<DxSums> { static constexpr bool value = true; };
 
 template <typename T>
 struct Terms;
@@ -170,11 +196,19 @@ size_t walk_pack_elems(int cin, int B, int Mp) {
   return (size_t)Terms<T>::value * B * s.ng * Mp * s.nt * 8;
 }
 
+// bf16 elements of dX's scales: [terms][B][27][n].
 template <typename T>
+size_t walk_scale_elems(int B, int n) {
+  return (size_t)Terms<T>::value * B * N_CELLS * n;
+}
+
+template <typename Tag, typename T>
 size_t walk_smem_bytes(int cin) {
   const int sp = walk_shape(cin).nt * 8 + 8;
   const int rows = WalkRows<T>::value;
+  const int sterms = IsDx<Tag>::value ? Terms<T>::value : 0;
   return sizeof(__nv_bfloat16) * 2 * Terms<T>::value * rows * sp   // features
+         + sizeof(__nv_bfloat16) * 2 * sterms * N_CELLS * rows     // dX's scales
          + sizeof(float) * 2 * rows * 3                             // coordinates
          + 2 * (rows / 16) * 32 * sizeof(uint2)                     // codes
          + sizeof(float) * WALK_M * 3                               // centers
@@ -186,8 +220,9 @@ size_t walk_smem_bytes(int cin) {
 // feats (B, Mp, cin) -> packed [terms][B][ng][Mp][nt*8] bf16: group g holds
 // channels g*(nt*8-1) .. +nt*8-2 (zeros past cin) and 1.0 in its last
 // column (in the first term only); f32 features split into hi, mid, lo.
-template <typename Tag, typename T>
-__global__ void pw_walk_pack_kernel(const T* __restrict__ feats,
+// dX packs its f32 g (Tin = float) to the terms of T the same way.
+template <typename Tag, typename T, typename Tin>
+__global__ void pw_walk_pack_kernel(const Tin* __restrict__ feats,
                                     __nv_bfloat16* __restrict__ packed, int B, int Mp,
                                     int cin, int nt, int ng) {
   const int w = nt * 8, per = w - 1;
@@ -218,13 +253,42 @@ __global__ void pw_walk_pack_kernel(const T* __restrict__ feats,
   }
 }
 
-// The means walk (see the note at the top).  Grid: x = (Ncp / WALK_M)
-// center tiles x ng channel groups x ctas, y = B; block: warps * 32.
+// dX's scales: cnt (B, n, 27) -> scl [terms][B][27][n] bf16 of
+// 1/max(cnt, 1) (divided in f32, correctly rounded): rounded to bf16 in
+// bf16 mode, split into hi, mid, lo in f32 mode.
+template <typename Tag, typename T>
+__global__ void pw_walk_scale_kernel(const float* __restrict__ cnt,
+                                     __nv_bfloat16* __restrict__ scl, int B, int n) {
+  const size_t total = (size_t)B * n * N_CELLS;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int k = (int)(i % N_CELLS);
+    const size_t r = i / N_CELLS;
+    const int j = (int)(r % n);
+    const int b = (int)(r / n);
+    const float x = __frcp_rn(fmaxf(cnt[i], 1.f));
+    const size_t o = ((size_t)b * N_CELLS + k) * n + j;
+    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
+    scl[o] = hi;
+    if (Terms<T>::value == 3) {
+      const float r1 = __fsub_rn(x, __bfloat162float(hi));
+      const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+      scl[total + o] = mid;
+      scl[2 * total + o] = __float2bfloat16_rn(__fsub_rn(r1, __bfloat162float(mid)));
+    }
+  }
+}
+
+// The walk (see the note at the top).  Grid: x = (Ncp / WALK_M) row
+// tiles x ng channel groups x ctas, y = B; block: warps * 32.  The rows
+// are centers (ctr) and the columns candidates (pts), or for DxSums the
+// rows candidates and the columns centers.
 template <typename Tag, typename T, int NT>
 __global__ void __launch_bounds__(WALK_MAX_WARPS * 32, 2)
 pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
                const float* __restrict__ pts,            // (B, Mp, 3)
                const __nv_bfloat16* __restrict__ packed, // pw_walk_pack_kernel
+               const __nv_bfloat16* __restrict__ scl,    // pw_walk_scale_kernel (dX) or null
                const int* __restrict__ tile_ptr,         // (B * Ncp/TILE + 1) or null
                const int* __restrict__ tile_idx,         // (tile_ptr[-1],) or null
                const float* __restrict__ cnt_in,         // (B, Ncp, 27) or null
@@ -233,7 +297,9 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
                int ldx, int B, int Ncp, int Mp, int cin, int ng_total, int ctas,
                float radius, float inv) {
   constexpr int CW = 16 / NT;           // cells per warp
+  constexpr bool DX = IsDx<Tag>::value;
   constexpr int TERMS = Terms<T>::value;
+  constexpr int STERMS = DX ? TERMS : 0;   // scale terms (dX)
   constexpr int ROWS = WalkRows<T>::value;   // candidates per iteration
   constexpr int SUB = ROWS / TILE;      // list entries per iteration
   constexpr int KS = ROWS / 16;         // k-steps per iteration
@@ -242,7 +308,8 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   constexpr unsigned ONE2 = 0x3F803F80u;   // two bf16 1.0
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [2][TERMS][ROWS][SP]
-  float* cxyz = reinterpret_cast<float*>(fs + 2 * TERMS * ROWS * SP);   // [2][ROWS*3]
+  __nv_bfloat16* ss = fs + 2 * TERMS * ROWS * SP;   // [2][STERMS][27][ROWS] (dX)
+  float* cxyz = reinterpret_cast<float*>(ss + 2 * STERMS * N_CELLS * ROWS);   // [2][ROWS*3]
   uint2* codes = reinterpret_cast<uint2*>(cxyz + 2 * ROWS * 3);         // [2][KS][32]
   float* pc = reinterpret_cast<float*>(codes + 2 * KS * 32);           // [WALK_M*3]
   unsigned char* live_w = reinterpret_cast<unsigned char*>(pc + WALK_M * 3);   // [2][32]
@@ -293,7 +360,9 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     }
   };
   // Iteration u's feature rows into fs[buf], only those of the live k-steps
-  // (bit s of `live`: k-step s holds a pair of one of the CTA's cells).
+  // (bit s of `live`: k-step s holds a pair of one of the CTA's cells);
+  // for dX also the scales of those k-steps' columns for the CTA's cells,
+  // into ss[buf][term][cell - cell_lo].
   auto stage_feats = [&](int u, int buf, unsigned live) {
     for (int c = threadIdx.x; c < TERMS * ROWS * NT; c += nthreads) {
       const int term = c / (ROWS * NT);
@@ -305,6 +374,22 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
                        + ((size_t)tile_of(u * SUB + j / TILE) * TILE + j % TILE) * W8
                        + q * 8,
                    16);
+    }
+    if constexpr (DX) {
+      const int ncl = cell_hi - cell_lo;
+      for (int c = threadIdx.x; c < STERMS * ncl * KS * 2; c += nthreads) {
+        const int half = c & 1;
+        const int s = (c >> 1) % KS;
+        const int r = (c >> 1) / KS;
+        const int kl = r % ncl, term = r / ncl;
+        if ((live >> s) & 1u) {
+          const int j = s * 16;
+          cp_async16(ss + ((buf * STERMS + term) * N_CELLS + kl) * ROWS + j + half * 8,
+                     scl + (((size_t)term * B + b) * N_CELLS + cell_lo + kl) * Mp
+                         + (size_t)tile_of(u * SUB + j / TILE) * TILE + j % TILE + half * 8,
+                     16);
+        }
+      }
     }
   };
   // The codes of the 16 x ROWS block of iteration u (coordinates in
@@ -323,9 +408,13 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     unsigned live = 0;
 #pragma unroll 4
     for (int j = threadIdx.x >> 4; j < ROWS; j += nthreads >> 4) {
-      const int code = j < n_real ? pair_code(cx[j * 3 + 0], cx[j * 3 + 1], cx[j * 3 + 2],
-                                              px, py, pz, r2, radius, inv)
-                                  : N_CELLS;
+      // pair_code(candidate, center): the column is the candidate, or for
+      // dX the row
+      const int code = j >= n_real ? N_CELLS
+                       : DX ? pair_code(px, py, pz, cx[j * 3 + 0], cx[j * 3 + 1],
+                                        cx[j * 3 + 2], r2, radius, inv)
+                            : pair_code(cx[j * 3 + 0], cx[j * 3 + 1], cx[j * 3 + 2],
+                                        px, py, pz, r2, radius, inv);
       cm[(j >> 4) * 256 + ((j & 6) << 2) + ((j & 8) >> 1) + (j & 1)] =
           (unsigned char)(code >= 0 && code < N_CELLS ? code : NO_CELL);
       if (code >= cell_lo && code < cell_hi) live |= 1u << (j >> 4);
@@ -346,6 +435,28 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
+
+  // ac += a . (the staged rows at frow, every term), NT n8-tiles
+  auto mma_terms = [&](float (&ac)[NT][4], const unsigned (&a)[4],
+                       const __nv_bfloat16* frow) {
+#pragma unroll
+    for (int term = 0; term < TERMS; ++term) {
+      const __nv_bfloat16* fp = frow + term * ROWS * SP;
+      if constexpr (NT == 1) {
+        unsigned b0, b1;
+        ldsm_x2_t(b0, b1, fp);
+        mma_bf16(ac[0], a, b0, b1);
+      } else {
+#pragma unroll
+        for (int p = 0; p < NT / 2; ++p) {
+          unsigned bb[4];
+          ldsm_x4_t(bb, fp + p * 16);
+          mma_bf16(ac[2 * p], a, bb[0], bb[1]);
+          mma_bf16(ac[2 * p + 1], a, bb[2], bb[3]);
+        }
+      }
+    }
+  };
 
   // The codes run one iteration ahead of the sums, so that each
   // iteration's features are fetched for its live k-steps only and land
@@ -379,6 +490,7 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
 
     if (active && live_cur != 0u) {
       const __nv_bfloat16* ft = fs + buf * TERMS * ROWS * SP;
+      const __nv_bfloat16* st = ss + buf * STERMS * N_CELLS * ROWS;
       const uint2* cbuf = codes + buf * KS * 32;
 #pragma unroll
       for (int s = 0; s < KS; ++s) {
@@ -387,30 +499,28 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
         const __nv_bfloat16* frow = ft + (s * 16 + (lane & 15)) * SP + (lane >> 4) * 8;
 #pragma unroll
         for (int i = 0; i < CW; ++i) {
-          const unsigned kk = (unsigned)(cg * CW + i) * 0x01010101u;
+          const int k = cg * CW + i;
+          const unsigned kk = (unsigned)k * 0x01010101u;
           const unsigned e0 = __vcmpeq4(cw.x, kk);
           const unsigned e1 = __vcmpeq4(cw.y, kk);
           if (!__any_sync(0xffffffffu, (e0 | e1) != 0u)) continue;   // empty cell
-          const unsigned a[4] = {__byte_perm(e0, 0u, 0x1100) & ONE2,
-                                 __byte_perm(e0, 0u, 0x3322) & ONE2,
-                                 __byte_perm(e1, 0u, 0x1100) & ONE2,
-                                 __byte_perm(e1, 0u, 0x3322) & ONE2};
+          // the plane's masks: rows g and g+8, columns 2tq, 2tq+1 (m0, m1)
+          // and 2tq+8, 2tq+9 (m2, m3), as bf16 pairs
+          const unsigned m0 = __byte_perm(e0, 0u, 0x1100), m1 = __byte_perm(e0, 0u, 0x3322);
+          const unsigned m2 = __byte_perm(e1, 0u, 0x1100), m3 = __byte_perm(e1, 0u, 0x3322);
+          if constexpr (DX) {
+            // the scaled plane: each column's scale in place of the ones
 #pragma unroll
-          for (int term = 0; term < TERMS; ++term) {
-            const __nv_bfloat16* fp = frow + term * ROWS * SP;
-            if constexpr (NT == 1) {
-              unsigned b0, b1;
-              ldsm_x2_t(b0, b1, fp);
-              mma_bf16(acc[i][0], a, b0, b1);
-            } else {
-#pragma unroll
-              for (int p = 0; p < NT / 2; ++p) {
-                unsigned bb[4];
-                ldsm_x4_t(bb, fp + p * 16);
-                mma_bf16(acc[i][2 * p], a, bb[0], bb[1]);
-                mma_bf16(acc[i][2 * p + 1], a, bb[2], bb[3]);
-              }
+            for (int term = 0; term < STERMS; ++term) {
+              const unsigned* sw = reinterpret_cast<const unsigned*>(
+                  st + (term * N_CELLS + k - cell_lo) * ROWS + s * 16);
+              const unsigned s01 = sw[lane & 3], s89 = sw[(lane & 3) + 4];
+              const unsigned a[4] = {m0 & s01, m1 & s01, m2 & s89, m3 & s89};
+              mma_terms(acc[i], a, frow);
             }
+          } else {
+            const unsigned a[4] = {m0 & ONE2, m1 & ONE2, m2 & ONE2, m3 & ONE2};
+            mma_terms(acc[i], a, frow);
           }
         }
       }
@@ -419,21 +529,28 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   }
   if (!active) return;
 
-  // means (and counts): thread (g, tq) holds rows g and g+8, columns
-  // nt*8 + 2*tq + {0, 1}; the count is column W8-1, held by lane g*4 + 3
+  // means (and counts), or dX's sums: thread (g, tq) holds rows g and
+  // g+8, columns nt*8 + 2*tq + {0, 1}; the count is column W8-1, held by
+  // lane g*4 + 3
   const int g = lane >> 2, tq = lane & 3;
   const int per = W8 - 1;
 #pragma unroll
   for (int i = 0; i < CW; ++i) {
     const int k = cg * CW + i;
     if (k >= N_CELLS) continue;   // warp-uniform
-    const float own[2] = {__shfl_sync(0xffffffffu, acc[i][NT - 1][1], (lane & ~3) | 3),
-                          __shfl_sync(0xffffffffu, acc[i][NT - 1][3], (lane & ~3) | 3)};
+    float own[2] = {0.f, 0.f};
+    if constexpr (!DX) {
+      own[0] = __shfl_sync(0xffffffffu, acc[i][NT - 1][1], (lane & ~3) | 3);
+      own[1] = __shfl_sync(0xffffffffu, acc[i][NT - 1][3], (lane & ~3) | 3);
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const size_t rg = (size_t)b * Ncp + c0 + g + 8 * h;
-      if (cnt_out != nullptr && ng == 0 && tq == 3) cnt_out[rg * N_CELLS + k] = own[h];
-      const float d = fmaxf(cnt_in != nullptr ? cnt_in[rg * N_CELLS + k] : own[h], 1.f);
+      float d = 1.f;
+      if constexpr (!DX) {
+        if (cnt_out != nullptr && ng == 0 && tq == 3) cnt_out[rg * N_CELLS + k] = own[h];
+        d = fmaxf(cnt_in != nullptr ? cnt_in[rg * N_CELLS + k] : own[h], 1.f);
+      }
       T* xr = xbar + rg * ldx + (size_t)k * cin;
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
@@ -441,7 +558,10 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
         for (int e = 0; e < 2; ++e) {
           const int lc = n * 8 + 2 * tq + e;
           const int ch = ng * per + lc;
-          if (lc < per && ch < cin) xr[ch] = from_f32<T>(acc[i][n][2 * h + e] / d);
+          if (lc < per && ch < cin) {
+            const float v = acc[i][n][2 * h + e];
+            xr[ch] = from_f32<T>(DX ? v : v / d);
+          }
         }
       }
     }
@@ -450,50 +570,67 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
 
 template <typename Tag, typename T, int NT>
 int launch_walk_nt(const WalkShape& s, const float* ctr, const float* pts,
-                   const __nv_bfloat16* packed, const int* tile_ptr, const int* tile_idx,
-                   const float* cnt_in, float* cnt_out, T* xbar, int ldx, int B, int Ncp,
-                   int Mp, int cin, float radius, float inv, cudaStream_t stream) {
-  const size_t smem = walk_smem_bytes<T>(cin);
+                   const __nv_bfloat16* packed, const __nv_bfloat16* scl, const int* tile_ptr,
+                   const int* tile_idx, const float* cnt_in, float* cnt_out, T* xbar, int ldx,
+                   int B, int Ncp, int Mp, int cin, float radius, float inv,
+                   cudaStream_t stream) {
+  const size_t smem = walk_smem_bytes<Tag, T>(cin);
   cudaError_t err = cudaFuncSetAttribute(
       pw_walk_kernel<Tag, T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Ncp / WALK_M) * s.ng * s.ctas, B);
   pw_walk_kernel<Tag, T, NT><<<grid, s.warps * 32, smem, stream>>>(
-      ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin,
+      ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin,
       s.ng, s.ctas, radius, inv);
   return (int)cudaGetLastError();
 }
 
-// Pack the features, then walk.  packed holds walk_pack_elems<T> bf16.
-// Returns the first cudaError_t (0 = launched).
+inline int grid_blocks(size_t n) {
+  return (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
+}
+
+// Pack the features (dX: round g and write the scales), then walk.
+// packed holds walk_pack_elems<T> bf16; for DxSums, feats is g (f32),
+// cnt_in the counts the scales come from and scl walk_scale_elems<T>(B, Mp)
+// bf16 of scratch.  Returns the first cudaError_t (0 = launched).
 template <typename Tag, typename T>
-int launch_walk(const float* ctr, const float* pts, const T* feats,
-                __nv_bfloat16* packed, const int* tile_ptr, const int* tile_idx,
-                const float* cnt_in, float* cnt_out, T* xbar, int ldx, int B, int Ncp,
-                int Mp, int cin, float radius, float inv, cudaStream_t stream) {
+int launch_walk(const float* ctr, const float* pts, const void* feats,
+                __nv_bfloat16* packed, __nv_bfloat16* scl, const int* tile_ptr,
+                const int* tile_idx, const float* cnt_in, float* cnt_out, T* xbar, int ldx,
+                int B, int Ncp, int Mp, int cin, float radius, float inv,
+                cudaStream_t stream) {
+  constexpr bool DX = IsDx<Tag>::value;
+  using Tin = typename std::conditional<DX, float, T>::type;
   if (cin < 1 || cin > MAX_WIDTH) return (int)cudaErrorInvalidValue;
   const WalkShape s = walk_shape(cin);
   const size_t n = (size_t)B * s.ng * Mp * s.nt * 8;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  pw_walk_pack_kernel<Tag, T><<<blocks, 256, 0, stream>>>(feats, packed, B, Mp, cin, s.nt, s.ng);
+  pw_walk_pack_kernel<Tag, T, Tin><<<grid_blocks(n), 256, 0, stream>>>(
+      static_cast<const Tin*>(feats), packed, B, Mp, cin, s.nt, s.ng);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
+  if constexpr (DX) {
+    pw_walk_scale_kernel<Tag, T><<<grid_blocks((size_t)B * Mp * N_CELLS), 256, 0, stream>>>(
+        cnt_in, scl, B, Mp);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    cnt_in = nullptr;
+  }
   switch (s.nt) {
     case 1:
-      return launch_walk_nt<Tag, T, 1>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
-                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 1>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
+                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
     case 2:
-      return launch_walk_nt<Tag, T, 2>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
-                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 2>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
+                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
     case 4:
-      return launch_walk_nt<Tag, T, 4>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
-                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 4>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
+                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
     case 8:
-      return launch_walk_nt<Tag, T, 8>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in, cnt_out,
-                                  xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 8>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
+                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
     default:
-      return launch_walk_nt<Tag, T, 16>(s, ctr, pts, packed, tile_ptr, tile_idx, cnt_in,
-                                   cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 16>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
+                                        cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
   }
 }
 

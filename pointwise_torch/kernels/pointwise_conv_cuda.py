@@ -15,9 +15,15 @@ launch failure raises.
       ``conv_fwd_product`` (``_finalize_tile``'s), each with its plain
       version;
   conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
-      replacing the ``_dw_kernel*`` family;
+      replacing the ``_dw_kernel*`` family: the forward's means walk
+      dividing by the forward's counts ``conv_dw_means`` then the
+      tensor-core product ``conv_dw_product`` (``_dw_finalize``'s), each
+      with its plain version;
   conv_dx / conv_dx_plain    feature gradient (csrc/pointwise_conv_dx.cu),
-      replacing the ``_dx_kernel*`` family;
+      replacing the ``_dx_kernel*`` family: the walk with candidates as rows
+      and scaled planes ``conv_dx_sums`` then the product
+      ``conv_dx_product`` (``_dx_finalize``'s, the forward's product with
+      W transposed), each with its plain version;
   conv_counts / conv_counts_plain  per-cell neighbor counts only
       (csrc/pointwise_conv_counts.cu), replacing ``_counts_kernel``
 of pointwise_tpu/kernels/pointwise_conv_pallas.py (see the notes at the top
@@ -80,8 +86,9 @@ _CSRC = os.path.join(_DIR, "csrc")
 _BUILD_DIR = os.path.join(_DIR, "_build")
 _SOURCES = ("pointwise_conv_fwd.cu", "pointwise_conv_dw.cu",
             "pointwise_conv_dx.cu", "pointwise_conv_counts.cu")
-_HEADERS = ("pointwise_conv_common.cuh", "pointwise_conv_walk.cuh")
-# The widest Cin (and forward Cout) the forward and dW kernels take (the
+_HEADERS = ("pointwise_conv_common.cuh", "pointwise_conv_walk.cuh",
+            "pointwise_conv_product.cuh")
+# The widest Cin (forward, dW) and Cout (forward, dX) the kernels take (the
 # card tests hold them to it); csrc/pointwise_conv_walk.cuh's MAX_WIDTH.
 MAX_WIDTH = 1024
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -90,8 +97,9 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
 LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "fwd_product": 0,
-            "dw_dense": 0, "dw_csr": 0,
-            "dx_dense": 0, "dx_csr": 0, "counts_dense": 0, "counts_csr": 0,
+            "dw_dense": 0, "dw_csr": 0, "dw_product": 0,
+            "dx_dense": 0, "dx_csr": 0, "dx_product": 0,
+            "counts_dense": 0, "counts_csr": 0,
             "fwd_ext_dense": 0, "fwd_ext_csr": 0}
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
@@ -201,8 +209,12 @@ def _bind(stem: str, lib):
             raise RuntimeError(f"kernel MAX_WIDTH {lib.pw_conv_max_width()} "
                                f"!= {MAX_WIDTH}")
     elif stem == "pointwise_conv_dw":
-        lib.pw_conv_dw.argtypes = [vp] * 11 + [ci] * 7 + [cf, cf, ci, vp]
-        lib.pw_conv_dw.restype = ci
+        lib.pw_conv_dw_means.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, ci,
+                                                              vp]
+        lib.pw_conv_dw_means.restype = ci
+        lib.pw_conv_dw_product.argtypes = [vp, ci, vp, vp, ci, vp, vp] \
+            + [ci] * 6 + [vp]
+        lib.pw_conv_dw_product.restype = ci
         lib.pw_dw_smem_bytes.argtypes = [ci, ci]
         lib.pw_dw_smem_bytes.restype = ll
         lib.pw_dw_pack_elems.argtypes = [ci] * 4
@@ -211,10 +223,17 @@ def _bind(stem: str, lib):
         lib.pw_conv_counts.argtypes = [vp] * 5 + [ci] * 3 + [cf, cf, vp]
         lib.pw_conv_counts.restype = ci
     else:
-        lib.pw_conv_dx.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, ci, vp]
-        lib.pw_conv_dx.restype = ci
-        lib.pw_dx_smem_bytes.argtypes = [ci]
+        lib.pw_conv_dx_sums.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
+        lib.pw_conv_dx_sums.restype = ci
+        lib.pw_conv_dx_product.argtypes = [vp, ci, vp, ci, vp] + [ci] * 4 \
+            + [vp]
+        lib.pw_conv_dx_product.restype = ci
+        lib.pw_dx_smem_bytes.argtypes = [ci, ci]
         lib.pw_dx_smem_bytes.restype = ll
+        lib.pw_dx_pack_elems.argtypes = [ci] * 4
+        lib.pw_dx_pack_elems.restype = ll
+        lib.pw_dx_scale_elems.argtypes = [ci] * 3
+        lib.pw_dx_scale_elems.restype = ll
     return lib
 
 
@@ -291,6 +310,14 @@ def _check_dw(ctr, pts, feats, g, cnt, tile_ptr, tile_idx):
     return B, Ncp, Mp, feats.shape[2], g.shape[2]
 
 
+def _check_dx_sums(ctr, pts, g, cnt, tile_ptr, tile_idx, dtype):
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx, rows="pts")
+    _check_grad_inputs(g, cnt, B, Ncp)
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"dtype must be float32 or bfloat16, got {dtype}")
+    return B, Ncp, Mp, g.shape[2]
+
+
 def _check_dx(ctr, pts, g, cnt, w, tile_ptr, tile_idx):
     B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx, rows="pts")
     _check_grad_inputs(g, cnt, B, Ncp)
@@ -332,7 +359,7 @@ def _width(cin, cout=None):
     for name, n in (("Cin", cin), ("Cout", cout)):
         if n is not None and n > MAX_WIDTH:
             raise ValueError(f"{name}={n} is wider than the {MAX_WIDTH} "
-                             f"channels the forward and dW kernels take")
+                             f"channels the kernels take")
 
 
 def _check_means(ctr, pts, feats, tile_ptr, tile_idx, cnt_in):
@@ -390,6 +417,53 @@ def conv_fwd_means(ctr, pts, feats, radius: float, tile_ptr=None,
     return xbar[:, :k], cnt
 
 
+def _check_product(a, w, n_k: int, what: str):
+    """The A operand of a product (rows, n_k) and the weights: same type,
+    rows a multiple of TILE, unit column stride and, in bf16, a row stride
+    that is a multiple of 8 (16-byte rows for cp.async).  Returns bf16."""
+    rows = a.shape[0] if a.ndim == 2 else -1
+    if w.ndim != 3 or w.shape[0] != N_CELLS or a.ndim != 2 \
+            or a.shape[1] != n_k or rows % TILE:
+        raise ValueError(f"{what} {tuple(a.shape)} / w {tuple(w.shape)} do "
+                         f"not match (rows % {TILE} == 0, {n_k}) x (27, Cin, "
+                         f"Cout)")
+    if a.dtype != w.dtype or w.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what} and w must share float32 or bfloat16, got "
+                        f"{a.dtype} and {w.dtype}")
+    bf16 = int(w.dtype == torch.bfloat16)
+    if a.stride(1) != 1 or a.stride(0) % (8 if bf16 else 1):
+        raise ValueError(f"{what} rows must be contiguous, their stride a "
+                         f"multiple of 8 in bfloat16")
+    _check_device([w], a.device)              # a's strides checked above
+    return bf16
+
+
+def _product(stem, key, a, wk, bias):
+    """Launch the product kernel of library ``stem`` (forward or dX): y
+    (rows, N) f32 = a . wk (+ bias), wk (K, N) in a's type; its columns are
+    padded to a multiple of 8 in bf16."""
+    lib = build_libraries()[stem]
+    rows, k = a.shape
+    n = wk.shape[1]
+    bf16 = int(wk.dtype == torch.bfloat16)
+    ldw = round_up(n, 8) if bf16 else n
+    wk = torch.nn.functional.pad(wk, (0, ldw - n)) if ldw != n \
+        else wk.contiguous()
+    y = torch.empty((rows, n), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if bias is not None:
+            _launch("pw_conv_fwd_product", lib.pw_conv_fwd_product(
+                a.data_ptr(), a.stride(0), wk.data_ptr(), ldw,
+                bias.data_ptr(), y.data_ptr(), rows, k, n, bf16, stream))
+        else:
+            _launch("pw_conv_dx_product", lib.pw_conv_dx_product(
+                a.data_ptr(), a.stride(0), wk.data_ptr(), ldw, y.data_ptr(),
+                rows, k, n, bf16, stream))
+    LAUNCHES[key] += 1
+    return y
+
+
 def conv_fwd_product(xbar, w, bias):
     """y (rows, Cout) f32 = xbar . W + bias: xbar (rows, 27*Cin) in W's type
     (rows a multiple of 64; unit column stride), W (27, Cin, Cout), bias
@@ -400,40 +474,15 @@ def conv_fwd_product(xbar, w, bias):
         return conv_fwd_product_plain(xbar, w, bias)
     if xbar.device.type != "cuda":
         raise ValueError(f"unsupported device {xbar.device}")
+    _check_product(xbar, w, N_CELLS * w.shape[1], "xbar")
     cin, cout = w.shape[1], w.shape[2]
-    k = N_CELLS * cin
-    rows = xbar.shape[0]
-    if w.shape != (N_CELLS, cin, cout) or xbar.ndim != 2 \
-            or xbar.shape[1] != k or rows % TILE:
-        raise ValueError(f"xbar {tuple(xbar.shape)} / w {tuple(w.shape)} do "
-                         f"not match (rows % {TILE} == 0, 27*Cin) x "
-                         f"(27, Cin, Cout)")
-    if xbar.dtype != w.dtype or w.dtype not in (torch.float32,
-                                                torch.bfloat16):
-        raise TypeError(f"xbar and w must share float32 or bfloat16, got "
-                        f"{xbar.dtype} and {w.dtype}")
     if bias.shape != (cout,) or bias.dtype != torch.float32:
         raise ValueError(f"bias must be float32 ({cout},), got {bias.dtype} "
                          f"{tuple(bias.shape)}")
-    bf16 = int(w.dtype == torch.bfloat16)
-    if xbar.stride(1) != 1 or xbar.stride(0) % (8 if bf16 else 1):
-        raise ValueError("xbar rows must be contiguous, their stride a "
-                         "multiple of 8 in bfloat16")
-    _check_device([w, bias], xbar.device)     # xbar's strides checked above
+    _check_device([bias], xbar.device)
     _width(cin, cout)
-    lib = build_libraries()["pointwise_conv_fwd"]
-    wk = w.reshape(k, cout)
-    ldw = round_up(cout, 8) if bf16 else cout
-    if ldw != cout:
-        wk = torch.nn.functional.pad(wk, (0, ldw - cout))
-    y = torch.empty((rows, cout), dtype=torch.float32, device=xbar.device)
-    with torch.cuda.device(xbar.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("pw_conv_fwd_product", lib.pw_conv_fwd_product(
-            xbar.data_ptr(), xbar.stride(0), wk.data_ptr(), ldw,
-            bias.data_ptr(), y.data_ptr(), rows, k, cout, bf16, stream))
-    LAUNCHES["fwd_product"] += 1
-    return y
+    return _product("pointwise_conv_fwd", "fwd_product", xbar,
+                    w.reshape(N_CELLS * cin, cout), bias)
 
 
 def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
@@ -476,82 +525,185 @@ def conv_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
     return cnt
 
 
-def _dw_splits(n_rows: int, k: int, cout: int, target_blocks: int = 528):
+def _dw_splits(n_rows: int, k: int, cout: int, bf16: bool):
     """(splits, chunk) of the dW product's center reduction: enough slices
-    that about ``target_blocks`` (four per SM of an H100) blocks run, each
-    slice a multiple of 32 centers and at least 256 of them."""
-    tiles = -(-k // 64) * -(-cout // 64)
+    that about two CTAs per SM of an H100 run (the tensor-core kernel's
+    128 x 128 output tiles) or four (the f32 kernel's 64 x 64), each slice
+    a multiple of 32 centers and at least 256 of them."""
+    tile, target_blocks = (128, 264) if bf16 else (64, 528)
+    tiles = -(-k // tile) * -(-cout // tile)
     splits = max(1, min(-(-target_blocks // tiles), n_rows // 256))
     chunk = round_up(-(-n_rows // splits), 32)
     return -(-n_rows // chunk), chunk
 
 
-def conv_dw(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
-            tile_idx=None):
-    """Weight gradient dW (27, Cin, Cout) f32 of the forward with these
-    inputs and the forward's counts ``cnt`` (see the module docstring).
-    Launches the CUDA kernels on CUDA tensors, runs ``conv_dw_plain`` on
-    CPU tensors."""
+def conv_dw_means(ctr, pts, feats, cnt, radius: float, tile_ptr=None,
+                  tile_idx=None):
+    """dW's means walk: xbar (B*Ncp, 27*Cin) in the features' type, the
+    forward's cell means divided by the forward's counts ``cnt`` (max(cnt,
+    1), f32) and rounded.  On a CUDA tensor it launches the tensor-core walk
+    (xbar is then a view of a workspace whose rows are padded to a multiple
+    of 8), on a CPU tensor it runs ``conv_dw_means_plain``."""
     if ctr.device.type == "cpu":
-        return conv_dw_plain(ctr, pts, feats, g, cnt, radius, tile_ptr,
-                             tile_idx)
+        return conv_dw_means_plain(ctr, pts, feats, cnt, radius, tile_ptr,
+                                   tile_idx)
     if ctr.device.type != "cuda":
         raise ValueError(f"unsupported device {ctr.device}")
-    B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
-                                      tile_idx)
-    _check_device([ctr, pts, feats, g, cnt, tile_ptr, tile_idx], ctr.device)
+    B, Ncp, Mp, cin = _check_means(ctr, pts, feats, tile_ptr, tile_idx, cnt)
+    _check_device([ctr, pts, feats, cnt, tile_ptr, tile_idx], ctr.device)
     _width(cin)
     lib = build_libraries()["pointwise_conv_dw"]
     bf16 = int(feats.dtype == torch.bfloat16)
     _smem(lib.pw_dw_smem_bytes(cin, bf16), f"Cin={cin}")
     dev = ctr.device
     k = N_CELLS * cin
-    splits, chunk = _dw_splits(B * Ncp, k, cout)
-    # workspaces: the packed features, the rounded cell means and the
-    # product's partial sums
+    ldx = round_up(k, 8)
+    xbar = torch.empty((B * Ncp, ldx), dtype=feats.dtype, device=dev)
     packed = _pack_scratch(lib.pw_dw_pack_elems, cin, bf16, B, Mp, dev)
-    xbar = torch.empty((B * Ncp, k), dtype=feats.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_dw_means", lib.pw_conv_dw_means(
+            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(),
+            packed.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx),
+            cnt.data_ptr(), xbar.data_ptr(), ldx, B, Ncp, Mp, cin,
+            float(radius), _inv_cell(radius), bf16, stream))
+    LAUNCHES["dw_dense" if tile_ptr is None else "dw_csr"] += 1
+    return xbar[:, :k]
+
+
+def _check_dw_product(xbar, g):
+    if g.ndim != 2 or g.dtype != torch.float32 or xbar.ndim != 2 \
+            or g.shape[0] != xbar.shape[0] or xbar.shape[1] % N_CELLS \
+            or xbar.shape[0] % TILE:
+        raise ValueError(f"xbar {tuple(xbar.shape)} / g {g.dtype} "
+                         f"{tuple(g.shape)} do not match (rows % {TILE} == 0, "
+                         f"27*Cin) and float32 (rows, Cout)")
+    if xbar.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"xbar must be float32 or bfloat16, got {xbar.dtype}")
+    return xbar.shape[1] // N_CELLS, g.shape[1]
+
+
+def conv_dw_product(xbar, g):
+    """dW (27, Cin, Cout) f32 = xbar^T . round(g) over all rows: xbar (rows,
+    27*Cin) in the matmul type (rows a multiple of 64; unit column stride,
+    a row stride that is a multiple of 8 in bf16), g (rows, Cout) f32,
+    rounded to xbar's type.  Launches the product kernels on CUDA tensors
+    (tensor cores in bf16, a split-K over the rows and a fixed-order
+    reduce), runs ``conv_dw_product_plain`` on CPU tensors."""
+    if xbar.device.type == "cpu":
+        return conv_dw_product_plain(xbar, g)
+    if xbar.device.type != "cuda":
+        raise ValueError(f"unsupported device {xbar.device}")
+    cin, cout = _check_dw_product(xbar, g)
+    bf16 = int(xbar.dtype == torch.bfloat16)
+    if xbar.stride(1) != 1 or xbar.stride(0) % (8 if bf16 else 1):
+        raise ValueError("xbar rows must be contiguous, their stride a "
+                         "multiple of 8 in bfloat16")
+    _check_device([g], xbar.device)
+    lib = build_libraries()["pointwise_conv_dw"]
+    dev = xbar.device
+    rows, k = xbar.shape
+    splits, chunk = _dw_splits(rows, k, cout, bf16)
+    # workspaces: round(g) with its rows padded, the slices' partial sums
+    ldg = round_up(cout, 8)
+    gb = (torch.empty((rows, ldg), dtype=torch.bfloat16, device=dev)
+          if bf16 else None)
     part = (torch.empty((splits, k, cout), dtype=torch.float32, device=dev)
             if splits > 1 else None)
     dw = torch.empty((N_CELLS, cin, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        _launch("pw_conv_dw", lib.pw_conv_dw(
-            ctr.data_ptr(), pts.data_ptr(), feats.data_ptr(), g.data_ptr(),
-            cnt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx),
-            packed.data_ptr(), xbar.data_ptr(), _ptr(part), dw.data_ptr(), B,
-            Ncp, Mp, cin, cout, splits, chunk, float(radius),
-            _inv_cell(radius), bf16, stream))
-    LAUNCHES["dw_dense" if tile_ptr is None else "dw_csr"] += 1
+        _launch("pw_conv_dw_product", lib.pw_conv_dw_product(
+            xbar.data_ptr(), xbar.stride(0), g.data_ptr(), _ptr(gb), ldg,
+            _ptr(part), dw.data_ptr(), rows, k, cout, splits, chunk, bf16,
+            stream))
+    LAUNCHES["dw_product"] += 1
     return dw
+
+
+def conv_dw(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
+            tile_idx=None):
+    """Weight gradient dW (27, Cin, Cout) f32 of the forward with these
+    inputs and the forward's counts ``cnt`` (see the module docstring).
+    On CUDA tensors the means walk and the product kernels
+    (``conv_dw_means``, ``conv_dw_product``), on CPU tensors
+    ``conv_dw_plain``."""
+    if ctr.device.type == "cpu":
+        return conv_dw_plain(ctr, pts, feats, g, cnt, radius, tile_ptr,
+                             tile_idx)
+    B, Ncp, _, _, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
+                                   tile_idx)
+    xbar = conv_dw_means(ctr, pts, feats, cnt, radius, tile_ptr, tile_idx)
+    return conv_dw_product(xbar, g.view(B * Ncp, cout))
+
+
+def conv_dx_sums(ctr, pts, g, cnt, radius: float, tile_ptr=None,
+                 tile_idx=None, dtype=torch.float32):
+    """dX's per-cell gradient sums: Z (B*Mp, 27*Cout) in ``dtype`` (the
+    matmul type), Z[j, k] the f32 sum over the in-ball centers i of cell k
+    of round(1/max(cnt_ik, 1)) * round(g_i), rounded.  ``tile_ptr`` /
+    ``tile_idx`` is the transposed list, candidate tile -> center tiles.
+    On a CUDA tensor it launches the tensor-core walk (Z is then a view of
+    a workspace whose rows are padded to a multiple of 8), on a CPU tensor
+    it runs ``conv_dx_sums_plain``."""
+    if ctr.device.type == "cpu":
+        return conv_dx_sums_plain(ctr, pts, g, cnt, radius, tile_ptr,
+                                  tile_idx, dtype)
+    if ctr.device.type != "cuda":
+        raise ValueError(f"unsupported device {ctr.device}")
+    B, Ncp, Mp, cout = _check_dx_sums(ctr, pts, g, cnt, tile_ptr, tile_idx,
+                                      dtype)
+    _check_device([ctr, pts, g, cnt, tile_ptr, tile_idx], ctr.device)
+    _width(None, cout)
+    lib = build_libraries()["pointwise_conv_dx"]
+    bf16 = int(dtype == torch.bfloat16)
+    _smem(lib.pw_dx_smem_bytes(cout, bf16), f"Cout={cout}")
+    dev = ctr.device
+    k = N_CELLS * cout
+    ldz = round_up(k, 8)
+    z = torch.empty((B * Mp, ldz), dtype=dtype, device=dev)
+    # workspaces: the packed terms of g and of the centers' scales
+    packed = _pack_scratch(lib.pw_dx_pack_elems, cout, bf16, B, Ncp, dev)
+    scl = torch.empty(lib.pw_dx_scale_elems(bf16, B, Ncp),
+                      dtype=torch.bfloat16, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _launch("pw_conv_dx_sums", lib.pw_conv_dx_sums(
+            pts.data_ptr(), ctr.data_ptr(), g.data_ptr(), cnt.data_ptr(),
+            packed.data_ptr(), scl.data_ptr(), _ptr(tile_ptr),
+            _ptr(tile_idx), z.data_ptr(), ldz, B, Mp, Ncp, cout,
+            float(radius), _inv_cell(radius), bf16, stream))
+    LAUNCHES["dx_dense" if tile_ptr is None else "dx_csr"] += 1
+    return z[:, :k]
+
+
+def conv_dx_product(z, w):
+    """dX (rows, Cin) f32 = Z . W^T per cell: Z (rows, 27*Cout) in W's type
+    (rows a multiple of 64; unit column stride), W (27, Cin, Cout).  The
+    forward's product kernel with W transposed and no bias on CUDA tensors
+    (tensor cores in bf16), ``conv_dx_product_plain`` on CPU tensors."""
+    if z.device.type == "cpu":
+        return conv_dx_product_plain(z, w)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    _check_product(z, w, N_CELLS * w.shape[2], "z")
+    cin, cout = w.shape[1], w.shape[2]
+    wt = w.transpose(1, 2).reshape(N_CELLS * cout, cin)
+    return _product("pointwise_conv_dx", "dx_product", z, wt, None)
 
 
 def conv_dx(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
             tile_idx=None):
     """Feature gradient dX (B, Mp, Cin) f32 (see the module docstring);
     ``tile_ptr``/``tile_idx`` is the transposed list, candidate tile ->
-    center tiles.  Launches the CUDA kernel on CUDA tensors, runs
-    ``conv_dx_plain`` on CPU tensors."""
+    center tiles.  On CUDA tensors the sums walk and the product kernel
+    (``conv_dx_sums``, ``conv_dx_product``), on CPU tensors
+    ``conv_dx_plain``."""
     if ctr.device.type == "cpu":
         return conv_dx_plain(ctr, pts, g, cnt, w, radius, tile_ptr, tile_idx)
-    if ctr.device.type != "cuda":
-        raise ValueError(f"unsupported device {ctr.device}")
-    B, Ncp, Mp, cin, cout = _check_dx(ctr, pts, g, cnt, w, tile_ptr,
-                                      tile_idx)
-    _check_device([ctr, pts, g, cnt, w, tile_ptr, tile_idx], ctr.device)
-    lib = build_libraries()["pointwise_conv_dx"]
-    _smem(lib.pw_dx_smem_bytes(cout), f"Cout={cout}")
-    wt = w.transpose(1, 2).contiguous()           # (27, Cout, Cin)
-    dx = torch.empty((B, Mp, cin), dtype=torch.float32, device=ctr.device)
-    with torch.cuda.device(ctr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        _launch("pw_conv_dx", lib.pw_conv_dx(
-            ctr.data_ptr(), pts.data_ptr(), g.data_ptr(), cnt.data_ptr(),
-            wt.data_ptr(), _ptr(tile_ptr), _ptr(tile_idx), dx.data_ptr(), B,
-            Ncp, Mp, cin, cout, float(radius), _inv_cell(radius),
-            int(w.dtype == torch.bfloat16), stream))
-    LAUNCHES["dx_dense" if tile_ptr is None else "dx_csr"] += 1
-    return dx
+    B, _, Mp, cin, _ = _check_dx(ctr, pts, g, cnt, w, tile_ptr, tile_idx)
+    z = conv_dx_sums(ctr, pts, g, cnt, radius, tile_ptr, tile_idx, w.dtype)
+    return conv_dx_product(z, w).view(B, Mp, cin)
 
 
 # ---- plain versions (the CPU path and the card's yardstick) -------------
@@ -656,31 +808,44 @@ def conv_counts_plain(ctr, pts, radius: float, tile_ptr=None,
     return _cell_sums_plain(ctr, pts, None, radius, tile_ptr, tile_idx)[1]
 
 
+def conv_dw_means_plain(ctr, pts, feats, cnt, radius: float, tile_ptr=None,
+                        tile_idx=None):
+    """Plain PyTorch version of ``conv_dw_means``: the forward's cell sums
+    divided in f32 by max(cnt, 1) and rounded to the features' type."""
+    return conv_fwd_means_plain(ctr, pts, feats, radius, tile_ptr, tile_idx,
+                                cnt_in=cnt)[0]
+
+
+def conv_dw_product_plain(xbar, g):
+    """Plain PyTorch version of ``conv_dw_product``: g rounded to xbar's
+    type, the f32 product of xbar^T and it."""
+    cin, cout = _check_dw_product(xbar, g)
+    dw = xbar.float().T @ g.to(xbar.dtype).float()
+    return dw.reshape(N_CELLS, cin, cout)
+
+
 def conv_dw_plain(ctr, pts, feats, g, cnt, radius: float, tile_ptr=None,
                   tile_idx=None):
     """Plain PyTorch version of ``conv_dw``: the forward's cell sums divided
     by the forward's counts and rounded to the matmul type, g rounded to the
     matmul type, and their f32 product over all centers."""
-    B, Ncp, Mp, cin, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
-                                      tile_idx)
-    xbar, _ = conv_fwd_means_plain(ctr, pts, feats, radius, tile_ptr,
-                                   tile_idx, cnt_in=cnt)
-    gm = g.to(feats.dtype).float()
-    dw = xbar.float().T @ gm.reshape(B * Ncp, cout)
-    return dw.reshape(N_CELLS, cin, cout)
+    B, Ncp, _, _, cout = _check_dw(ctr, pts, feats, g, cnt, tile_ptr,
+                                   tile_idx)
+    xbar = conv_dw_means_plain(ctr, pts, feats, cnt, radius, tile_ptr,
+                               tile_idx)
+    return conv_dw_product_plain(xbar, g.reshape(B * Ncp, cout))
 
 
-def conv_dx_plain(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
-                  tile_idx=None):
-    """Plain PyTorch version of ``conv_dx``: for each candidate tile, the
-    centers of its listed center tiles; Z[j, k] sums round(1/max(cnt, 1)) *
-    round(g_i) over the in-ball centers i of cell k (codes from candidate -
-    center, as the forward's), then round(Z) . W^T in f32."""
-    B, Ncp, Mp, cin, cout = _check_dx(ctr, pts, g, cnt, w, tile_ptr,
-                                      tile_idx)
-    dev, mm = ctr.device, w.dtype
-    gm = g.to(mm).float()
-    inv_cnt = (1.0 / torch.clamp_min(cnt, 1.0)).to(mm).float()
+def _dx_sums_plain(ctr, pts, g, cnt, radius, tile_ptr, tile_idx, dtype):
+    """dX's per-cell sums in f32, (B, Mp, 27, Cout): for each candidate
+    tile, the centers of its listed center tiles; Z[j, k] sums
+    round(1/max(cnt, 1)) * round(g_i) over the in-ball centers i of cell k
+    (codes from candidate - center, as the forward's)."""
+    B, Mp = pts.shape[:2]
+    Ncp, cout = g.shape[1], g.shape[2]
+    dev = ctr.device
+    gm = g.to(dtype).float()
+    inv_cnt = (1.0 / torch.clamp_min(cnt, 1.0)).to(dtype).float()
     z = torch.zeros((B, Mp, N_CELLS, cout), dtype=torch.float32, device=dev)
     lane = torch.arange(TILE, device=dev)
     for b, row, tiles in _walk(tile_ptr, tile_idx, B, Mp // TILE,
@@ -695,8 +860,36 @@ def conv_dx_plain(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
         zt = z[b, row * TILE:(row + 1) * TILE].view(-1, cout)
         zt.index_add_(0, ii * N_CELLS + k,
                       inv_cnt[b, ci, k][:, None] * gm[b, ci])
-    zr = z.to(mm).float().reshape(B, Mp, N_CELLS * cout)
-    return zr @ w.float().transpose(1, 2).reshape(N_CELLS * cout, cin)
+    return z
+
+
+def conv_dx_sums_plain(ctr, pts, g, cnt, radius: float, tile_ptr=None,
+                       tile_idx=None, dtype=torch.float32):
+    """Plain PyTorch version of ``conv_dx_sums``: the f32 sums rounded to
+    ``dtype``, (B*Mp, 27*Cout)."""
+    B, _, Mp, cout = _check_dx_sums(ctr, pts, g, cnt, tile_ptr, tile_idx,
+                                    dtype)
+    z = _dx_sums_plain(ctr, pts, g, cnt, radius, tile_ptr, tile_idx, dtype)
+    return z.to(dtype).reshape(B * Mp, N_CELLS * cout)
+
+
+def conv_dx_product_plain(z, w):
+    """Plain PyTorch version of ``conv_dx_product``: the forward's plain
+    product with W transposed per cell and a zero bias."""
+    return conv_fwd_product_plain(
+        z, w.transpose(1, 2),
+        torch.zeros(w.shape[1], dtype=torch.float32, device=w.device))
+
+
+def conv_dx_plain(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,
+                  tile_idx=None):
+    """Plain PyTorch version of ``conv_dx``: ``conv_dx_sums_plain`` in W's
+    type (g, 1/max(cnt, 1) and Z rounded to it), then round(Z) . W^T in
+    f32."""
+    B, _, Mp, cin, _ = _check_dx(ctr, pts, g, cnt, w, tile_ptr, tile_idx)
+    z = conv_dx_sums_plain(ctr, pts, g, cnt, radius, tile_ptr, tile_idx,
+                           w.dtype)
+    return conv_dx_product_plain(z, w).view(B, Mp, cin)
 
 
 # ---- tile-bbox adjacency (plain tensor code, not a kernel) ---------------

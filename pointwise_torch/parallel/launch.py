@@ -26,6 +26,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from pointwise_torch import resolve_device
 from pointwise_torch.parallel.mesh import make_mesh, shard_batch
 
 
@@ -50,12 +51,15 @@ def _entry(rank, world, store_path, fn, kwargs, out_path, shape, backend,
 
 def spawn(fn, world: int, workdir: str, *, data: int | None = None,
           space: int = 1, kwargs: dict | None = None, backend: str = "gloo",
-          device: str = "cpu", timeout: float = 120.0, comm_timeout: int = 60,
-          threads: int = 1) -> list:
+          device: str | None = None, timeout: float = 120.0,
+          comm_timeout: int = 60, threads: int = 1) -> list:
     """Run ``fn(mesh, **kwargs)`` on ``world`` spawned ranks (mesh
-    ``data`` x ``space``); returns their results in rank order.  Raises if
-    a rank fails or the ranks outlast ``timeout`` seconds (every rank is
-    killed first); ``comm_timeout`` bounds each collective."""
+    ``data`` x ``space``) on ``device``, which defaults to the card
+    (``resolve_device``: raises with no card; pass ``device='cpu'`` for the
+    CPU); returns their results in rank order.  Raises if a rank fails or
+    the ranks outlast ``timeout`` seconds (every rank is killed first);
+    ``comm_timeout`` bounds each collective."""
+    device = str(resolve_device(device))
     os.makedirs(workdir, exist_ok=True)
     store = os.path.join(workdir, "store")
     if os.path.exists(store):

@@ -1,5 +1,5 @@
-"""The CUDA kernels (forward, dW, dX) against their plain PyTorch versions,
-on the card.
+"""The CUDA kernels (forward, dW, dX, counts) against their plain PyTorch
+versions, on the card.
 
 Marked ``cuda``: the ``cuda`` fixture skips each test when no card is
 present (decided inside the fixture, never at import).  On a host with an
@@ -8,7 +8,10 @@ NVIDIA Hopper GPU run
 repository conftest sets JAX up for the CPU tests; these need none of it).
 Tolerances: f32 1e-4, relative to max |want| for the gradients (the plain
 version sums with atomics in another order); bf16 2e-2 relative to
-max |want| (one bf16 ulp of a rounded mean or per-cell sum can flip).
+max |want| (one bf16 ulp of a rounded mean or per-cell sum can flip).  A
+product kernel alone, given the same rounded operand as its plain version,
+is held to 1e-4 relative to max |want| in both types: only the order of
+its f32 sums differs.
 """
 
 import numpy as np
@@ -151,8 +154,10 @@ def test_launch_counters_and_gradient(cuda):
         (y * y).sum().backward()
         assert f.grad.abs().max() > 0 and w.grad.abs().max() > 0
     torch.cuda.synchronize()
+    # each gradient: one walk of its mode and one product
     assert {k: v for k, v in tk.LAUNCHES.items() if k[:2] in ("dw", "dx")} \
-        == {"dw_dense": 1, "dw_csr": 1, "dx_dense": 1, "dx_csr": 1}
+        == {"dw_dense": 1, "dw_csr": 1, "dw_product": 2, "dx_dense": 1,
+            "dx_csr": 1, "dx_product": 2}
 
 
 @pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
@@ -330,3 +335,75 @@ def test_width_refused_above_the_limit(cuda):
                         radius=0.3, precision="bfloat16")
     with pytest.raises(ValueError, match="Cout=1025 is wider"):
         tk.conv_fwd(**kw)
+    g = torch.zeros((1, kw["ctr"].shape[1], wide), device=cuda)
+    with pytest.raises(ValueError, match="Cout=1025 is wider"):
+        tk.conv_dx(kw["ctr"], kw["pts"], g, cnt, kw["w"], 0.3)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_dx_sums_and_products_match_plain(cuda, csr, precision):
+    # each backward kernel alone: dX's sums walk, dW's means walk, and the
+    # two products on the same rounded operands as their plain versions
+    p = _scene_inputs(cuda, cin=124)
+    dw_args, dx_args = _grad_inputs(p, 0.2, precision, csr)
+    ctr, pts, g, cnt, w, radius, ptr_t, idx_t = dx_args
+    z = tk.conv_dx_sums(*dx_args[:4], radius, ptr_t, idx_t, w.dtype)
+    z_p = tk.conv_dx_sums_plain(*dx_args[:4], radius, ptr_t, idx_t, w.dtype)
+    xbar = tk.conv_dw_means(ctr, pts, dw_args[2], cnt, radius, *dw_args[6:])
+    xbar_p = tk.conv_dw_means_plain(ctr, pts, dw_args[2], cnt, radius,
+                                    *dw_args[6:])
+    g2 = g.view(-1, g.shape[2])
+    dw, dw_p = tk.conv_dw_product(xbar, g2), tk.conv_dw_product_plain(xbar, g2)
+    dx, dx_p = tk.conv_dx_product(z, w), tk.conv_dx_product_plain(z, w)
+    torch.cuda.synchronize()
+    assert z.shape == z_p.shape and z.dtype == z_p.dtype == w.dtype
+    assert z_p.abs().max() > 0 and dw_p.abs().max() > 0
+    _close(z.float(), z_p.float(), precision)
+    _close(xbar.float(), xbar_p.float(), precision)
+    _close(dw, dw_p, "float32")
+    _close(dx, dx_p, "float32")
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cout", [3, 6, 124, tk.MAX_WIDTH])
+def test_dx_widths_walks_and_repeats(cuda, cout, precision):
+    # dX at each width: against the plain version, the dense and CSR walks
+    # identical bit for bit, two runs identical
+    p = _scene_inputs(cuda, b=1, n=700, nc=600, cin=124, cout=cout)
+    outs = {}
+    for csr in (False, True):
+        _, dx_args = _grad_inputs(p, 0.3, precision, csr)
+        dx, dx2 = tk.conv_dx(*dx_args), tk.conv_dx(*dx_args)
+        dx_p = tk.conv_dx_plain(*dx_args)
+        torch.cuda.synchronize()
+        assert dx_p.abs().max() > 0
+        assert torch.equal(dx, dx2)
+        _close(dx, dx_p, precision)
+        outs[csr] = dx
+    assert torch.equal(outs[False], outs[True])
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_dx_block_with_all_27_cells(cuda, precision):
+    # the forward's all-cells block with the roles swapped (3 candidates as
+    # rows, the 16 offsets negated as center columns): the per-block cell
+    # skip of dX's walk must drop no cell
+    ctr, pts, _, w, _ = _all_cells_block(cuda, 124)
+    rows = torch.full_like(pts, tk.SENTINEL)
+    rows[0, :3] = -ctr[0, :3]
+    cols = torch.full_like(ctr, -tk.SENTINEL)
+    cols[0, :16] = -pts[0, :16]
+    cnt = tk.conv_counts(cols, rows, 0.75)
+    g = torch.from_numpy(np.random.RandomState(6).standard_normal(
+        (1, tk.TILE, 16)).astype(np.float32)).to(cuda)
+    args = (cols, rows, g, cnt, w.to(getattr(torch, precision)), 0.75)
+    z = tk.conv_dx_sums(cols, rows, g, cnt, 0.75, dtype=args[4].dtype)
+    z_p = tk.conv_dx_sums_plain(cols, rows, g, cnt, 0.75,
+                                dtype=args[4].dtype)
+    dx, dx_p = tk.conv_dx(*args), tk.conv_dx_plain(*args)
+    torch.cuda.synchronize()
+    cells = z_p.float().view(tk.TILE, 27, 16)[:3].abs().sum((0, 2))
+    assert bool((cells > 0).all())                      # all 27 cells
+    _close(z.float(), z_p.float(), precision)
+    _close(dx, dx_p, precision)

@@ -67,7 +67,7 @@ def jax_run(p, gdir, S, strategy, radius):
 
 def torch_run(tmp_path, p, gdir, S, strategy, radius, probe=False):
     res = launch.spawn(launch.conv_worker, S, str(tmp_path), space=S,
-                       timeout=RUN_LIMIT,
+                       timeout=RUN_LIMIT, device="cpu",
                        kwargs=dict(problem=p, gdir=gdir, radius=radius,
                                    strategy=strategy, probe=probe))
     y = torch.cat([r["y"] for r in res], 1).numpy()

@@ -109,7 +109,7 @@ def test_spmd_seg_step_matches_jax_unsharded(tmp_path, data, space,
                   context_axes=("space",) if global_context else ())
     res = launch.spawn(
         launch.train_worker, data * space, str(tmp_path), data=data,
-        space=space, timeout=RUN_LIMIT,
+        space=space, timeout=RUN_LIMIT, device="cpu",
         kwargs=dict(kind="seg", model_kwargs=kwargs, state=init,
                     opt_cfg=OptimizerConfig(**OPT), batches=[seg_batch()],
                     seeds=[0], space_axis="space",
@@ -152,7 +152,7 @@ def test_spmd_classifier_matches_jax_unsharded(tmp_path, data, space, impl):
                   context_axes=("space",) if space > 1 else ())
     res = launch.spawn(
         launch.train_worker, data * space, str(tmp_path), data=data,
-        space=space, timeout=RUN_LIMIT,
+        space=space, timeout=RUN_LIMIT, device="cpu",
         kwargs=dict(kind="cls", model_kwargs=kwargs, state=init,
                     opt_cfg=OptimizerConfig(**OPT), batches=[cls_batch()],
                     seeds=[0], space_axis="space" if space > 1 else None,
@@ -176,11 +176,11 @@ def test_spmd_checkpoint_resume_same_bits(tmp_path):
                   opt_cfg=OptimizerConfig(**OPT), space_axis="space",
                   checkpoint_dir=str(tmp_path / "ck"))
     full = launch.spawn(launch.train_worker, 4, str(tmp_path / "a"), data=2,
-                        space=2, timeout=RUN_LIMIT,
+                        space=2, timeout=RUN_LIMIT, device="cpu",
                         kwargs=dict(common, batches=batches, seeds=[0, 1, 2],
                                     save_after=2))
     resumed = launch.spawn(launch.train_worker, 4, str(tmp_path / "b"),
-                           data=2, space=2, timeout=RUN_LIMIT,
+                           data=2, space=2, timeout=RUN_LIMIT, device="cpu",
                            kwargs=dict(common, batches=batches[2:],
                                        seeds=[2], restore=True))
     assert resumed[0]["step"] == full[0]["step"] == 3
@@ -199,7 +199,7 @@ def test_spmd_checkpoint_resume_same_bits(tmp_path):
 def test_train_cli_dp_and_sp(tmp_path, argv, data, space):
     res = launch.spawn(
         launch.cli_worker, data * space, str(tmp_path), data=data,
-        space=space, timeout=RUN_LIMIT,
+        space=space, timeout=RUN_LIMIT, device="cpu",
         kwargs=dict(argv=argv + ["--steps", "2", "--device", "cpu"]))
     for r in res:
         assert r["step"] == 2 and len(r["metrics"]) == 2
@@ -254,3 +254,16 @@ def test_mesh_defaults_to_the_card(monkeypatch):
         make_mesh()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_mesh(space=1, backend="gloo")
+
+
+def test_spawn_defaults_to_the_card(monkeypatch, tmp_path):
+    # spawned ranks follow the same rule: with no device they run on the
+    # card, and without one the launch raises, names the CPU option and
+    # starts no process
+    started = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(launch.mp, "get_context",
+                        lambda *a: started.append(a))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch.spawn(launch.conv_worker, 2, str(tmp_path / "ranks"))
+    assert not started and not (tmp_path / "ranks").exists()

@@ -1,4 +1,4 @@
-"""The tensor-core means walk's arithmetic, mirrored in plain PyTorch.
+"""The tensor-core kernels' arithmetic, mirrored in plain PyTorch.
 
 The forward and dW kernels sum each cell's features as 0/1 cell planes times
 the feature rows on tensor cores (csrc/pointwise_conv_walk.cuh).  The card
@@ -11,12 +11,24 @@ the kernel module's plain walk (``_cell_sums_plain``), whose counts
 ``conv_counts`` equals bit for bit on the card, and, through the product,
 to the JAX package's Pallas op in interpret mode.
 
+dX's walk (tag DxSums) is the same walk with candidates as rows and the
+centers of the transposed tile list as columns; ``mirror_dx_walk`` repeats
+it: per 16 candidates and 16 x 16 block, each cell's plane with its ones
+replaced by the column's scale round(1/max(cnt, 1)), times round(g) (in f32
+mode three bf16 terms of each, nine exact products), accumulated in f32.
+It is held to ``_dx_sums_plain``, the f32 sums that ``conv_dx_sums_plain``
+rounds.  ``mirror_dw_product`` repeats dW's tensor-core product: the
+wrapper's split-K slices of the centers, 16-center k-steps of xbar^T .
+round(g) in f32, the slices added in ascending order.
+
 Tolerances: counts are integers and must be equal.  Sums: the mirror adds
-the same exact products as the plain walk (0/1 x an exact bf16 term), per
-16-candidate block first, so the two differ only by f32 rounding of sums of
-at most a few hundred terms of |x| <= ~5: 1e-5 absolute and relative.  The
-forward against JAX: f32 2e-5 (the JAX package's own tolerance for sums
-taken in another order).
+the same exact products as the plain walk (0/1 x an exact bf16 term, or in
+dX a bf16 scale x a bf16 term), per 16-candidate block first, so the two
+differ only by f32 rounding of sums of at most a few hundred terms of |x|
+<= ~5: 1e-5 absolute and relative (for dW's product relative to max |dW|,
+a sum over every center).  The forward against JAX: f32 2e-5 (the JAX
+package's own tolerance for sums taken in another order); dX against
+``jax.vjp``: tests/test_torch_grad.py's tolerances.
 """
 
 import jax
@@ -234,3 +246,216 @@ def test_means_and_product_compose_to_the_forward():
         assert torch.equal(cnt, cnt_w)
         assert torch.equal(y.view(want.shape), want)
         assert sum(tk.LAUNCHES.values()) == 0
+
+
+def mirror_dx_walk(ctr, pts, g, cnt, radius, tile_ptr=None, tile_idx=None,
+                   dtype=torch.float32):
+    """dX's sums Z (B, Mp, 27, Cout) f32 as the kernel forms them: 16
+    candidates at a time, each listed center tile in order, per 16 x 16
+    block only the cells it holds, the scaled plane's terms times g's
+    terms in f32."""
+    B, Ncp, _ = ctr.shape
+    Mp, cout = pts.shape[1], g.shape[2]
+    s = 1.0 / torch.clamp_min(cnt, 1.0)          # divided in f32
+    if dtype == torch.float32:
+        s_terms, g_terms = split3(s), split3(g)
+    else:
+        s_terms, g_terms = (s.to(dtype),), (g.to(dtype),)
+    s_terms = [t.float() for t in s_terms]
+    g_terms = [t.float() for t in g_terms]
+    z = torch.zeros((B, Mp, 27, cout))
+    n_rows = Mp // tk.TILE
+    ptr = None if tile_ptr is None else tile_ptr.tolist()
+    cells = torch.arange(27)[:, None, None]
+    for b in range(B):
+        for row in range(n_rows):
+            if ptr is None:
+                tiles = range(Ncp // tk.TILE)
+            else:
+                i = b * n_rows + row
+                tiles = tile_idx[ptr[i]:ptr[i + 1]].tolist()
+            for m0 in range(row * tk.TILE, (row + 1) * tk.TILE, WALK_M):
+                q = pts[b, m0:m0 + WALK_M]
+                acc = torch.zeros((27, WALK_M, cout))
+                for it in tiles:
+                    for j0 in range(it * tk.TILE, (it + 1) * tk.TILE, K_STEP):
+                        c = ctr[b, j0:j0 + K_STEP]
+                        # pair_code(candidate, center): the row's candidate
+                        code, ok = tk._pair_codes(q[:, None] - c[None],
+                                                  radius)
+                        code = torch.where(ok, code,
+                                           torch.full_like(code, 255))
+                        on = code[None] == cells             # (27, 16, 16)
+                        live = on.flatten(1).any(1).nonzero()[:, 0]
+                        for st in s_terms:               # empty cells skipped
+                            plane = on[live] * st[b, j0:j0 + K_STEP,
+                                                  live].T[:, None, :]
+                            for gt in g_terms:
+                                acc[live] += plane @ gt[b, j0:j0 + K_STEP]
+                z[b, m0:m0 + WALK_M] = acc.transpose(0, 1)
+    return z
+
+
+def dx_inputs(p, radius, precision, csr, seed=0):
+    """(ctr, pts, g, cnt, radius, transposed list) of a scene: the
+    forward's counts, g from a numpy seed, the candidate-tile -> center-tile
+    list for the CSR walk."""
+    kw, _ = conv_layout(p["points"], p["features"], p["weights"], p["bias"],
+                        radius=radius, mask=p["mask"], centers=p["centers"],
+                        center_mask=p["center_mask"], precision=precision,
+                        csr=csr)
+    cnt = tk.conv_counts_plain(kw["ctr"], kw["pts"], radius, kw["tile_ptr"],
+                               kw["tile_idx"])
+    g = torch.from_numpy(np.random.RandomState(seed).standard_normal(
+        (*kw["ctr"].shape[:2], p["weights"].shape[2])).astype(np.float32))
+    ptr_t = idx_t = None
+    if csr:
+        ptr_t, idx_t = tk.tile_adjacency(kw["pts"], kw["ctr"], radius)
+    return kw, (kw["ctr"], kw["pts"], g, cnt, radius, ptr_t, idx_t)
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+@pytest.mark.parametrize("cout", [6, 124])
+def test_dx_mirror_matches_plain_sums(cout, csr, precision):
+    radius = 0.375
+    p = scene(20 + cout, 5, radius)
+    p["weights"] = torch.zeros((27, 5, cout))       # only its width is read
+    _, args = dx_inputs(p, radius, precision, csr, seed=cout)
+    dtype = getattr(torch, precision)
+    z = mirror_dx_walk(*args, dtype=dtype)
+    z_p = tk._dx_sums_plain(*args, dtype)
+    assert bool((args[3] > 1).any()) and z_p.abs().max() > 0
+    torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-5)
+    # the plain version's output is those sums rounded to the matmul type
+    assert torch.equal(tk.conv_dx_sums_plain(*args, dtype),
+                       z_p.to(dtype).reshape(z_p.shape[0] * z_p.shape[1], -1))
+
+
+def test_dx_mirror_skips_no_cell_of_a_block_that_holds_all_27():
+    # the forward's all-cells block with the roles swapped: 3 candidates
+    # as rows, the 16 offsets (negated) as center columns, the same rel
+    ctr, pts, _ = all_cells_block()
+    pts2 = torch.full_like(pts, tk.SENTINEL)
+    pts2[0, :3] = -ctr[0, :3]
+    ctr2 = torch.full_like(ctr, -tk.SENTINEL)
+    ctr2[0, :16] = -pts[0, :16]
+    cnt = tk.conv_counts_plain(ctr2, pts2, 0.75)
+    g = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (1, tk.TILE, 7)).astype(np.float32))
+    for dtype in (torch.float32, torch.bfloat16):
+        args = (ctr2, pts2, g, cnt, 0.75, None, None)
+        z = mirror_dx_walk(*args, dtype=dtype)
+        z_p = tk._dx_sums_plain(*args, dtype)
+        assert bool((z_p[0, :3].abs().sum((0, 2)) > 0).all())   # all 27
+        torch.testing.assert_close(z, z_p, rtol=1e-5, atol=1e-5)
+
+
+def test_three_term_split_of_the_scales_is_exact():
+    # f32 mode's scales 1/max(cnt, 1), divided in f32 as the kernel does
+    x = 1.0 / torch.arange(1, 4097, dtype=torch.float32)
+    hi, mid, lo = split3(x)
+    assert torch.equal(hi.double() + mid.double() + lo.double(), x.double())
+
+
+def mirror_dw_product(xbar, g):
+    """dW (27, Cin, Cout) as the tensor-core product forms it: the rows in
+    the wrapper's slices, each slice's 16-row k-steps of xbar^T . round(g)
+    accumulated in f32, the slices added in ascending order."""
+    rows, k = xbar.shape
+    cout = g.shape[1]
+    splits, chunk = tk._dw_splits(rows, k, cout,
+                                  xbar.dtype == torch.bfloat16)
+    x, gb = xbar.float(), g.to(xbar.dtype).float()
+    total = None
+    for s in range(splits):
+        part = torch.zeros((k, cout))
+        for n0 in range(s * chunk, min((s + 1) * chunk, rows), K_STEP):
+            part += x[n0:n0 + K_STEP].T @ gb[n0:n0 + K_STEP]
+        total = part if total is None else total + part
+    return total.reshape(27, k // 27, cout), splits
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_dw_product_mirror_matches_plain(csr, precision):
+    radius, cin = 0.375, 124
+    p = scene(30, cin, radius)
+    kw, _ = conv_layout(p["points"], p["features"], p["weights"], p["bias"],
+                        radius=radius, mask=p["mask"], centers=p["centers"],
+                        center_mask=p["center_mask"], precision=precision,
+                        csr=csr)
+    _, cnt = tk.conv_fwd_plain(**kw)
+    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (*kw["ctr"].shape[:2], 9)).astype(np.float32))
+    walk = (kw["ctr"], kw["pts"], kw["feats"], g, cnt, radius,
+            kw["tile_ptr"], kw["tile_idx"])
+    xbar = tk.conv_dw_means_plain(*walk[:3], cnt, radius, *walk[6:])
+    dw, splits = mirror_dw_product(xbar, g.reshape(-1, 9))
+    want = tk.conv_dw_plain(*walk)
+    assert splits > 1                      # the split-K reduce is exercised
+    torch.testing.assert_close(dw, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_wrappers_compose_to_the_plain_gradients():
+    # the CPU path of dW's and dX's two wrappers each is the plain gradient,
+    # bit for bit, and launches nothing
+    radius = 0.375
+    p = scene(6, 124, radius, b=1)
+    for precision in ("float32", "bfloat16"):
+        kw, args = dx_inputs(p, radius, precision, True, seed=3)
+        ctr, pts, g, cnt, _, ptr_t, idx_t = args
+        tk.reset_launches()
+        xbar = tk.conv_dw_means(ctr, pts, kw["feats"], cnt, radius,
+                                kw["tile_ptr"], kw["tile_idx"])
+        dw = tk.conv_dw_product(xbar, g.reshape(-1, g.shape[2]))
+        z = tk.conv_dx_sums(*args, dtype=kw["w"].dtype)
+        dx = tk.conv_dx_product(z, kw["w"])
+        assert xbar.dtype == z.dtype == kw["w"].dtype
+        assert z.shape == (pts.shape[1], 27 * 9)
+        assert torch.equal(dw, tk.conv_dw_plain(
+            ctr, pts, kw["feats"], g, cnt, radius, kw["tile_ptr"],
+            kw["tile_idx"]))
+        assert torch.equal(dx.view(1, -1, 124), tk.conv_dx_plain(
+            ctr, pts, g, cnt, kw["w"], radius, ptr_t, idx_t))
+        assert sum(tk.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+def test_dx_sums_and_product_match_jax_vjp(precision):
+    # conv_dx_sums_plain then the product: the feature gradient of the JAX
+    # op (Pallas, interpret mode) under the same cotangent
+    radius, cin = 0.375, 6
+    p = scene(12, cin, radius, b=1)
+    kw, (_, nc, _) = conv_layout(
+        p["points"], p["features"], p["weights"], p["bias"], radius=radius,
+        mask=p["mask"], centers=p["centers"], center_mask=p["center_mask"],
+        precision=precision, csr=True)
+    n = p["points"].shape[1]
+    gdir = np.random.RandomState(4).standard_normal((1, nc, 9)).astype(
+        np.float32)
+    g = torch.zeros((1, kw["ctr"].shape[1], 9))
+    g[:, :nc] = torch.from_numpy(gdir) * p["center_mask"][..., None]
+    _, cnt = tk.conv_fwd_plain(**kw)
+    ptr_t, idx_t = tk.tile_adjacency(kw["pts"], kw["ctr"], radius)
+    z = tk.conv_dx_sums_plain(kw["ctr"], kw["pts"], g, cnt, radius, ptr_t,
+                              idx_t, kw["w"].dtype)
+    got = tk.conv_dx_product_plain(z, kw["w"]).reshape(1, -1, cin)[:, :n]
+    j = {k: jnp.asarray(v.numpy()) for k, v in p.items()}
+
+    def f(x):
+        return jax_conv(j["points"], x, j["weights"], j["bias"],
+                        radius=radius, mask=j["mask"], centers=j["centers"],
+                        center_mask=j["center_mask"], impl="pallas",
+                        precision=precision)
+
+    _, vjp = jax.vjp(f, j["features"])
+    want = np.asarray(vjp(jnp.asarray(gdir))[0])
+    scale = float(np.abs(want).max())
+    assert scale > 0
+    if precision == "bfloat16":
+        assert float(np.abs(got.numpy() - want).max()) <= 2e-2 * scale
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * scale)
