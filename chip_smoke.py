@@ -32,15 +32,35 @@ Phases, each printing one JSON line:
            (dw_*, dx_*) and product (dw_product, dx_product); dW and
            dX with the external counts of the parity phase vs their plain
            versions, bits identical run to run;
-  train    the train CLI's function in-process at full width, 20 steps
+  train    the train CLI's function in-process at full width, 22 steps
            each: s3dis_synthetic_local (CSR walk) and modelnet40_synthetic
            (dense walk), checkpoints in a temp dir; finite loss, grad norm
            > 0, changed weights, the dw_*/dx_* launches of the walk (counts
-           zeroed just before each run, read just after), ms/step after 2
-           warm-up steps, trained points/s and the device idle share of
-           two traced steps; a second run of the same seed, stopped at
-           step 10 and resumed, must end on the same bits; then infer
+           zeroed just before each run, read just after); steps 3-20 run
+           back to back with one sync at each end of the window (ms/step,
+           trained points/s, as the JAX bench times steps), steps 21-22
+           under torch.profiler (device ms per step; idle share = 1 -
+           device ms / untraced ms); a second run of the same seed, stopped
+           at step 11 and resumed, must end on the same bits; then infer
            serves one 200K request from the segmentation checkpoint;
+  eval     python -m pointwise_torch.eval's flows on the train checkpoints:
+           --votes 12 of modelnet40_synthetic, block voting and --streaming
+           of s3dis_synthetic_local, each flow's JSON line, wall seconds
+           and launches;
+  partseg  ShapeNetPart through the train CLI's function at full width (6 x
+           124 trunk, 8 x 2048 points, 16 categories, 48 synthetic parts,
+           bf16 convs; every conv on the dense walk), 20 steps timed as the
+           train phase (window 3-18, traced 19-20): finite loss, grad norm
+           > 0, changed weights, 6 forwards per step and the dW / dX
+           launches the hooks expect (counts zeroed just before, read just
+           after), stop-at-10-and-resume bits; eval.main on its checkpoint;
+           one test batch's logits on the card against the same model on
+           the CPU (the plain versions, ``compare``'s bf16 tolerance);
+  batchnorm s3dis_synthetic_local --norm batch, 22 steps (CSR walk), timed
+           over the train phase's window (3-20, traced 21-22) so its ms/step
+           compares with the LayerNorm run's: running averages moved and
+           finite, resume bits; block voting of its checkpoint on the
+           running averages;
   trace    one more 200K scene under torch.profiler: the device's busy
            and idle share of the request, its device ms per kernel family
            and its costliest device ops (the train phase's traced steps
@@ -60,11 +80,12 @@ Phases, each printing one JSON line:
            --sp 2 (gather), 3 of Trainer(mesh, space_axis="space") with
            impl="spatial:space:ring", and 3 of a ring classifier at
            modelnet40_synthetic (32 x 1024: the counts and partials take
-           the dense walk); each run's first loss against the single-device
-           trainer's on the same batch (2e-3, the JAX package's bf16 SPMD
-           pin), grad norm > 0, its launches (counts zeroed just before,
-           read just after, summed over the ranks) and ms/step.  No rate of
-           (b) is a multi-card number;
+           the dense walk), and 3 of --sp 2 --norm batch (gather, moments
+           reduced over both ranks); each run's first loss against the
+           single-device trainer's on the same batch (2e-3, the JAX
+           package's bf16 SPMD pin), grad norm > 0, its launches (counts
+           zeroed just before, read just after, summed over the ranks) and
+           ms/step.  No rate of (b) is a multi-card number;
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -78,7 +99,9 @@ Phases, each printing one JSON line:
            means walk and product, dX's sums walk and product, each
            product's own rows against its plain version).  Each product row
            has the ms of one PyTorch call of the same function beside it
-           (``library_ms``; cuBLAS, never called by the port).
+           (``library_ms``; cuBLAS, never called by the port).  Then the
+           same rows at ShapeNetPart's widest-radius layer (tagged
+           ``path``), outside the kernels line.
 Then the ``kernels`` line (thirteen kernels), the nvidia-smi line and,
 last, the result line.
 Any failure raises: the script exits non-zero and prints no result.  It
@@ -88,6 +111,7 @@ imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
 import math
 import os
@@ -121,7 +145,10 @@ KERNELS = {     # name: (the TPU kernel it replaces, its source here)
 COUNTS_OPS_PER_PAIR = 9
 SPATIAL_STEPS = 3
 SPMD_LOSS_RTOL = 2e-3
-TRAIN_STEPS = 20
+# steps 3..steps-2 timed, the last two traced (timed_train); the BatchNorm
+# run times the same window as the LayerNorm one it is compared with
+TRAIN_STEPS = 22
+PARTSEG_STEPS = 20
 TRAIN_CONFIGS = (("s3dis_synthetic_local", "csr"),
                  ("modelnet40_synthetic", "dense"))
 
@@ -574,78 +601,113 @@ def kernel_ms(ops, dev_us, per=1):
             for fam, key in KERNEL_FAMILIES}
 
 
-def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
-    """Both configurations through the train CLI's function; returns
-    ({config: summary}, {(kernel_walk, layer): recorded conv call},
-    {(kernel_walk, layer): dW / dX launches per training step}, the
-    segmentation checkpoint directory)."""
+def timed_train(dev, argv, steps):
+    """``cli.main(argv + ["--steps", steps])`` timed as the JAX bench times
+    a run (bench.py: steps back to back, one sync at the end): steps 3 ..
+    steps-2 run with no host sync of the script's own, the card is
+    synchronised only at the two ends of that window, and the last two
+    steps run under torch.profiler after it.  Returns (trainer, per-step
+    metrics as floats, timing): ms per untraced step, the device ms per
+    step of the traced steps, the device idle share 1 - device / untraced
+    ms, and the traced steps' device ms per kernel family."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from pointwise_torch.train import cli
+
+    first, last = 2, steps - 2          # the window: steps first+1 .. last
+    marks, metrics, prof = {}, [], []
+
+    def on_step(step, m):
+        metrics.append(m)               # device scalars: read after the run
+        if step in (first, last, steps):
+            torch.cuda.synchronize()
+            marks[step] = time.perf_counter()
+        if step == last:
+            prof.append(profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]))
+            prof[0].__enter__()
+        elif step == steps:
+            prof[0].__exit__(None, None, None)
+
+    trainer = cli.main(argv + ["--steps", str(steps)], on_step=on_step)
+    torch.cuda.synchronize()
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    step_ms = (marks[last] - marks[first]) / (last - first) * 1e3
+    busy, ops, dev_us = device_busy_s(prof[0])
+    timing = dict(steps=steps, timed_steps=[first + 1, last],
+                  ms_per_step=step_ms,
+                  traced_steps=[last + 1, steps],
+                  traced_ms_per_step=(marks[steps] - marks[last])
+                  / (steps - last) * 1e3)
+    if busy <= 0:
+        timing["device_ms_per_step"] = "not measured"
+    else:
+        dev_ms = busy * 1e3 / (steps - last)
+        timing.update(
+            device_ms_per_step=dev_ms,
+            device_idle_share=1.0 - dev_ms / step_ms,
+            kernel_ms_per_step=kernel_ms(ops, dev_us, per=steps - last),
+            top=[{"op": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count}
+                 for e in sorted(ops, key=dev_us, reverse=True)[:6]])
+    return trainer, metrics, timing
+
+
+def same_state(a, b):
+    """True when two models' state_dicts hold the same bits."""
+    import torch
+
+    sa, sb = a.state_dict(), b.state_dict()
+    return sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k])
+                                            for k in sa)
+
+
+def resumed_bits_equal(dev, argv, steps, trainer, workdir):
+    """The same run stopped half way and resumed from its checkpoint must
+    end on ``trainer``'s bits (every reduction runs in a fixed order)."""
+    from pointwise_torch.train import cli
+
+    common = argv + ["--device", dev.type, "--checkpoint-dir", workdir]
+    cli.main(common + ["--steps", str(steps // 2)])
+    resumed = cli.main(common + ["--steps", str(steps), "--resume"])
+    return same_state(trainer.model, resumed.model)
+
+
+def phase_train(dev, workdir, steps=TRAIN_STEPS):
+    """Both configurations through the train CLI's function (timed_train);
+    returns ({config: summary}, {(kernel_walk, layer): recorded conv call},
+    {(kernel_walk, layer): dW / dX launches per training step},
+    {config: checkpoint directory})."""
+    import torch
 
     from pointwise_torch.kernels import pointwise_conv_cuda as tk
     from pointwise_torch.train import cli, get_config
 
-    summaries, calls, per_step = {}, {}, {}
+    summaries, calls, per_step, ckpts = {}, {}, {}, {}
     for config, walk in TRAIN_CONFIGS:
         cfg = get_config(config)
-        ck = os.path.join(workdir, config)
-        marks, metrics, prof = {}, [], []
-
-        def on_step(step, m):
-            # device-synchronised wall clock after every step; steps
-            # traced[0]..traced[1] run under the profiler
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-            metrics.append({k: float(v) for k, v in m.items()})
-            if step == traced[0] - 1:
-                prof.append(profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA]))
-                prof[0].__enter__()
-            elif step == traced[1]:
-                prof[0].__exit__(None, None, None)
-
+        ck = ckpts[config] = os.path.join(workdir, config)
         recorder = ConvRecorder(cfg.radii, prefix="dw")
         tk.reset_launches()
-        trainer = cli.main(["--config", config, "--steps", str(steps),
-                            "--device", dev.type, "--checkpoint-dir", ck],
-                           on_step=on_step)
-        torch.cuda.synchronize()
+        trainer, metrics, timing = timed_train(
+            dev, ["--config", config, "--device", dev.type,
+                  "--checkpoint-dir", ck], steps)
         launches = dict(tk.LAUNCHES)
         recorder.remove()
         initial, _ = (cli.build_segmenter if walk == "csr"
                       else cli.build_classifier)(cfg, dev)
-        final = trainer.model.state_dict()
-        changed = any(not torch.equal(a, b) for a, b in zip(
-            final.values(), initial.state_dict().values()))
-        # the same seed, stopped half way and resumed from its checkpoint,
-        # must end on the same bits (every reduction runs in a fixed order)
-        common = ["--config", config, "--device", dev.type,
-                  "--checkpoint-dir", os.path.join(workdir, f"{config}_2")]
-        cli.main(common + ["--steps", str(steps // 2)])
-        resumed = cli.main(common + ["--steps", str(steps), "--resume"])
-        repeat = all(torch.equal(a, b) for a, b in zip(
-            final.values(), resumed.model.state_dict().values()))
-        step_s = (marks[steps] - marks[2]) / (steps - 2)
-        wall = marks[traced[1]] - marks[traced[0] - 1]
-        busy, ops, dev_us = device_busy_s(prof[0])
-        rec = dict(config=config, walk=walk, steps=steps,
-                   batch=cfg.batch_size, points=cfg.num_points,
-                   launches=launches, weights_changed=changed,
-                   resumed_run_bitwise_equal=repeat,
-                   ms_per_step=step_s * 1e3,
+        changed = not same_state(trainer.model, initial)
+        repeat = resumed_bits_equal(dev, ["--config", config], steps,
+                                    trainer,
+                                    os.path.join(workdir, f"{config}_2"))
+        rec = dict(config=config, walk=walk, batch=cfg.batch_size,
+                   points=cfg.num_points, launches=launches,
+                   weights_changed=changed, resumed_run_bitwise_equal=repeat,
                    trained_points_per_s=cfg.batch_size * cfg.num_points
-                   / step_s,
+                   / timing["ms_per_step"] * 1e3,
                    loss_first=metrics[0]["loss"], loss_last=metrics[-1]["loss"],
                    grad_norm_min=min(m["grad_norm"] for m in metrics),
-                   traced_steps=list(traced), traced_wall_s=wall,
-                   device_busy_s=busy if busy > 0 else "not measured")
-        if busy > 0:
-            rec["device_idle_share"] = 1.0 - busy / wall
-            rec["kernel_ms_per_step"] = kernel_ms(
-                ops, dev_us, per=traced[1] - traced[0] + 1)
-            rec["top"] = [{"op": e.key[:80], "ms": dev_us(e) / 1e3,
-                           "calls": e.count}
-                          for e in sorted(ops, key=dev_us, reverse=True)[:6]]
+                   **timing)
         emit({"phase": "train", **rec})
         finite = all(math.isfinite(m["loss"]) for m in metrics)
         need = [f"dw_{walk}", f"dx_{walk}"]
@@ -665,8 +727,169 @@ def phase_train(dev, workdir, steps=TRAIN_STEPS, traced=(18, 19)):
         calls.update(recorder.calls)
         per_step.update({k: v / steps
                          for k, v in recorder.backward_calls.items()})
-    return (summaries, calls, per_step,
-            os.path.join(workdir, TRAIN_CONFIGS[0][0]))
+    return summaries, calls, per_step, ckpts
+
+
+def phase_partseg(dev, workdir, steps=PARTSEG_STEPS):
+    """ShapeNetPart through the train CLI's function at full width (6 x 124,
+    8 x 2048 points, every conv on the dense walk), timed as the train
+    phase; the forward's, dW's and dX's launches of that run (counts zeroed
+    just before, read just after), the resume check, ``eval.main`` on its
+    checkpoint, and one test batch's logits on the card against the same
+    model on the CPU (the plain versions).  Returns the recorded conv calls
+    and the dW / dX launches per step of each (kernel, layer)."""
+    import copy
+
+    import torch
+
+    from pointwise_torch import eval as evaluate
+    from pointwise_torch.data import shapenetpart
+    from pointwise_torch.infer import load_trained
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.train import cli, get_config
+
+    config = "shapenetpart"
+    cfg = get_config(config)
+    ck = os.path.join(workdir, config)
+    recorder = ConvRecorder(cfg.radii, prefix="dw")
+    tk.reset_launches()
+    trainer, metrics, timing = timed_train(
+        dev, ["--config", config, "--device", dev.type, "--checkpoint-dir",
+              ck], steps)
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    recorder.remove()
+    data = shapenetpart.load_shapenetpart(None, "train", cfg.num_points,
+                                          seed=cfg.seed)
+    initial, _ = cli.build_partseg(cfg, data, dev)
+    changed = not same_state(trainer.model, initial)
+    repeat = resumed_bits_equal(dev, ["--config", config], steps, trainer,
+                                os.path.join(workdir, f"{config}_2"))
+    per_layer = {k: sum(v for (n, _), v in recorder.backward_calls.items()
+                        if n == k) for k in ("dw_dense", "dx_dense")}
+    rec = dict(config=config, walk="dense", batch=cfg.batch_size,
+               points=cfg.num_points, parts=data.num_parts,
+               blocks=len(cfg.channels), launches=launches,
+               weights_changed=changed, resumed_run_bitwise_equal=repeat,
+               trained_points_per_s=cfg.batch_size * cfg.num_points
+               / timing["ms_per_step"] * 1e3,
+               loss_first=metrics[0]["loss"], loss_last=metrics[-1]["loss"],
+               grad_norm_min=min(m["grad_norm"] for m in metrics), **timing)
+    emit({"phase": "partseg", **rec})
+    fwd = len(cfg.channels) * steps
+    if not (all(math.isfinite(m["loss"]) for m in metrics)
+            and rec["grad_norm_min"] > 0 and changed and repeat
+            and len(metrics) == steps
+            and launches.get("fwd_dense") == fwd
+            and launches.get("fwd_product") == fwd
+            and "fwd_csr" not in launches
+            and all(launches.get(k) == per_layer[k] > 0 for k in per_layer)
+            and launches.get("dw_product") == per_layer["dw_dense"]
+            and launches.get("dx_product") == per_layer["dx_dense"]):
+        raise AssertionError(f"part segmentation training failed: {rec}, "
+                             f"hooks saw {per_layer}")
+    t0 = time.perf_counter()
+    miou = evaluate.main(["--config", config, "--checkpoint-dir", ck,
+                          "--device", dev.type])
+    eval_s = time.perf_counter() - t0
+    # one test batch: the card's kernels against the plain versions on the
+    # CPU, the same weights
+    model = cli.build_partseg(cfg, data, "cpu")[0]
+    load_trained(model, ck)
+    cpu_model = copy.deepcopy(model).eval()
+    card_model = model.to(dev).eval()
+    test = shapenetpart.load_shapenetpart(None, "test", cfg.num_points,
+                                          synthetic_size=64, seed=cfg.seed)
+    batch = next(shapenetpart.batches(test, cfg.batch_size, shuffle=False))
+    with torch.inference_mode():
+        y = card_model(*(torch.from_numpy(batch[k]).to(dev)
+                         for k in ("points", "category"))).cpu()
+        y_ref = cpu_model(*(torch.from_numpy(batch[k])
+                            for k in ("points", "category")))
+    err, ok = compare(y, y_ref, "bfloat16")
+    emit({"phase": "partseg", "eval_wall_s": eval_s, "instance_miou": miou,
+          "logits_vs_cpu_plain": dict(shape=list(y.shape), max_abs_err=err,
+                                      max_abs=float(y_ref.abs().max()),
+                                      ok=ok)})
+    if not (ok and 0.0 <= miou <= 1.0):
+        raise AssertionError(f"part segmentation eval failed: {err}, {miou}")
+    return recorder.calls, {k: v / steps
+                            for k, v in recorder.backward_calls.items()}
+
+
+def phase_batchnorm(dev, workdir, steps=TRAIN_STEPS):
+    """s3dis_synthetic_local with --norm batch (every conv on the CSR walk),
+    timed as the train phase: the running averages moved and stay finite,
+    the resume check, then block voting of its checkpoint (running
+    averages)."""
+    import torch
+
+    from pointwise_torch import eval as evaluate
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    config, walk = TRAIN_CONFIGS[0]
+    argv = ["--config", config, "--norm", "batch"]
+    ck = os.path.join(workdir, "batchnorm")
+    tk.reset_launches()
+    trainer, metrics, timing = timed_train(
+        dev, argv + ["--device", dev.type, "--checkpoint-dir", ck], steps)
+    launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+    stats = {k: v for k, v in trainer.model.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))}
+    moved = bool(stats) and all(
+        bool(torch.isfinite(v).all()) and not torch.equal(
+            v, torch.zeros_like(v) if k.endswith("mean")
+            else torch.ones_like(v)) for k, v in stats.items())
+    repeat = resumed_bits_equal(dev, argv, steps, trainer,
+                                os.path.join(workdir, "batchnorm_2"))
+    rec = dict(config=config, norm="batch", walk=walk, launches=launches,
+               running_stats_moved_and_finite=moved,
+               resumed_run_bitwise_equal=repeat,
+               loss_first=metrics[0]["loss"], loss_last=metrics[-1]["loss"],
+               grad_norm_min=min(m["grad_norm"] for m in metrics), **timing)
+    emit({"phase": "batchnorm", **rec})
+    if not (moved and repeat and rec["grad_norm_min"] > 0
+            and all(math.isfinite(m["loss"]) for m in metrics)
+            and all(launches.get(f"{k}_{walk}", 0) > 0
+                    for k in ("fwd", "dw", "dx"))):
+        raise AssertionError(f"BatchNorm training failed: {rec}")
+    t0 = time.perf_counter()
+    m = evaluate.main(argv + ["--checkpoint-dir", ck, "--device", dev.type])
+    emit({"phase": "batchnorm", "eval": "block voting",
+          "eval_wall_s": time.perf_counter() - t0,
+          "accuracy": m["accuracy"], "miou": m["miou"]})
+    if not 0.0 <= m["accuracy"] <= 1.0:
+        raise AssertionError(f"BatchNorm block voting failed: {m}")
+
+
+def phase_eval(dev, ckpts):
+    """``python -m pointwise_torch.eval``'s flows on the train phase's
+    checkpoints: rotation voting (12 votes) of the classifier, block voting
+    and exact streaming of the segmenter; each flow's wall seconds and
+    launches (counts zeroed just before, read just after)."""
+    import torch
+
+    from pointwise_torch import eval as evaluate
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    seg, cls = (c for c, _ in TRAIN_CONFIGS)
+    for flow, argv in (
+            ("rotation voting", ["--config", cls, "--votes", "12",
+                                 "--checkpoint-dir", ckpts[cls]]),
+            ("block voting", ["--config", seg, "--checkpoint-dir",
+                              ckpts[seg]]),
+            ("streaming", ["--config", seg, "--streaming",
+                           "--checkpoint-dir", ckpts[seg]])):
+        tk.reset_launches()
+        t0 = time.perf_counter()
+        out = evaluate.main(argv + ["--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        value = out if isinstance(out, float) else out["accuracy"]
+        emit({"phase": "eval", "flow": flow, "config": argv[1],
+              "wall_s": wall, "accuracy": value,
+              "launches": {k: v for k, v in tk.LAUNCHES.items() if v}})
+        if not (0.0 <= value <= 1.0 and any(tk.LAUNCHES.values())):
+            raise AssertionError(f"eval {flow} failed: {out}")
 
 
 def phase_serve_trained(dev, ck, n_points=200_000):
@@ -762,8 +985,6 @@ def spatial_configs():
     """The spatial phase's configurations: the training cells at dropout 0
     (and segmentation jitter 0, ``jitter=0.0`` of the CLI's function), so
     that a sharded step computes the unsharded one's function."""
-    import dataclasses
-
     from pointwise_torch.train import get_config
 
     return (dataclasses.replace(get_config("s3dis_synthetic_local"),
@@ -801,9 +1022,10 @@ def sync(dev):
 def spatial_worker(mesh, steps, configs):
     """One rank of the spatial phase's 2-rank runs (spawned by
     pointwise_torch.parallel.launch, which imports this module): the
-    gather strategy through the train CLI's function (--sp 2), then the
-    ring for the segmenter and for the classifier through the Trainer.
-    Returns, per run, the launches, the step metrics and ms/step."""
+    gather strategy through the train CLI's function (--sp 2, then --sp 2
+    --norm batch), then the ring for the segmenter and for the classifier
+    through the Trainer.  Returns, per run, the launches, the step metrics
+    and ms/step."""
     import contextlib
     import io
 
@@ -848,6 +1070,9 @@ def spatial_worker(mesh, steps, configs):
                            "--sp", "2", "--device", dev.type])
     run("gather", lambda on_step: cli.train_segmentation(
         seg, args, dev, on_step, mesh, jitter=0.0))
+    run("gather_bn", lambda on_step: cli.train_segmentation(
+        dataclasses.replace(seg, norm="batch"), args, dev, on_step, mesh,
+        jitter=0.0))
     run("seg_ring", lambda on_step: trained(seg, PointwiseSegmenter(
         num_classes=seg.num_classes, in_features=seg.in_features,
         channels=seg.channels, radii=seg.radii, head_dims=seg.head_dims,
@@ -938,9 +1163,11 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
 
     seg, cls = configs or spatial_configs()
     single, calls = {}, {}
-    for cfg, train in ((seg, functools.partial(cli.train_segmentation,
-                                               jitter=0.0)),
-                       (cls, cli.train_classification)):
+    seg_step = functools.partial(cli.train_segmentation, jitter=0.0)
+    for key, cfg, train in (("seg", seg, seg_step),
+                            ("seg_bn", dataclasses.replace(seg, norm="batch"),
+                             seg_step),
+                            ("cls", cls, cli.train_classification)):
         first = []
         recorder = ConvRecorder(cfg.radii, prefix="ring")
         args = cli.parse_args(["--config", cfg.name, "--steps", "1",
@@ -949,8 +1176,9 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
             train(cfg, args, dev,
                   lambda step, m: first.append(float(m["loss"])))
         recorder.remove()
-        single[cfg.name] = first[0]
-        calls[cfg.name] = recorder.calls
+        single[key] = first[0]
+        if key != "seg_bn":
+            calls[cfg.name] = recorder.calls
     sync(dev)
     t0 = time.perf_counter()
     res = launch.spawn(spatial_worker, 2, os.path.join(workdir, "ranks"),
@@ -960,22 +1188,26 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
                        timeout=900, comm_timeout=300, threads=4)
     wall = time.perf_counter() - t0
     launches = collections.Counter()
-    for name, cfg, need in (
-            ("gather", seg, ("fwd_csr", "dw_csr", "dx_csr", "dw_product",
-                             "dx_product")),
-            ("seg_ring", seg, ("counts_csr", "fwd_ext_dense", "dw_dense",
-                               "dx_dense", "dw_product", "dx_product")),
-            ("cls_ring", cls, ("counts_dense", "fwd_ext_dense", "dw_dense",
-                               "dx_dense", "dw_product", "dx_product"))):
+    gather = ("fwd_csr", "dw_csr", "dx_csr", "dw_product", "dx_product")
+    for name, key, cfg, need in (
+            ("gather", "seg", seg, gather),
+            ("gather_bn", "seg_bn", dataclasses.replace(seg, norm="batch"),
+             gather),
+            ("seg_ring", "seg", seg, ("counts_csr", "fwd_ext_dense",
+                                      "dw_dense", "dx_dense", "dw_product",
+                                      "dx_product")),
+            ("cls_ring", "cls", cls, ("counts_dense", "fwd_ext_dense",
+                                      "dw_dense", "dx_dense", "dw_product",
+                                      "dx_product"))):
         runs = [r[name] for r in res]
         got = collections.Counter()
         for r in runs:
             got.update(r["launches"])
         first = runs[0]["metrics"][0]["loss"]
-        rel = abs(first - single[cfg.name]) / abs(single[cfg.name])
-        rec = dict(run=name, config=cfg.name, ranks=2, steps=steps,
-                   launches={k: v for k, v in got.items() if v},
-                   loss_first=first, loss_first_single_device=single[cfg.name],
+        rel = abs(first - single[key]) / abs(single[key])
+        rec = dict(run=name, config=cfg.name, norm=cfg.norm, ranks=2,
+                   steps=steps, launches={k: v for k, v in got.items() if v},
+                   loss_first=first, loss_first_single_device=single[key],
                    loss_rel_diff=rel, tol=SPMD_LOSS_RTOL,
                    loss_last=runs[0]["metrics"][-1]["loss"],
                    grad_norm_min=min(m["grad_norm"] for r in runs
@@ -1132,10 +1364,11 @@ def _time_row(name, layer, mod, kw, fn, plain, args, inputs, pairs, width,
     return row
 
 
-def phase_times(calls, per_step):
+def phase_times(calls, per_step, **tag):
     """Forward rows from the serve phase's calls; dW and dX rows from the
     train phase's (keys "dw_<walk>"), with g from a numpy seed and the
-    launches per training step of each (kernel, layer)."""
+    launches per training step of each (kernel, layer); ``tag`` goes into
+    every row."""
     import torch
 
     from pointwise_torch.kernels import pointwise_conv_cuda as tk
@@ -1171,12 +1404,13 @@ def phase_times(calls, per_step):
                 rows.append(_time_row(name, layer, mod, kw, tk.conv_fwd,
                                       tk.conv_fwd_plain, fa,
                                       list(fa[:5]) + lists, pairs, cin,
-                                      centers_n, **split))
+                                      centers_n, **split, **tag))
                 rows.append(_time_row("fwd_product", layer, mod, kw,
                                       tk.conv_fwd_product,
                                       tk.conv_fwd_product_plain, pa,
                                       list(pa), 0.0, 0, centers_n,
-                                      library=library_product, walk=walk))
+                                      library=library_product, walk=walk,
+                                      **tag))
                 continue
             dw_args, dx_args = grad_inputs(kw, seed=layer, nc=nc)
             pairs = float(dw_args[4].sum())
@@ -1204,7 +1438,7 @@ def phase_times(calls, per_step):
                 per = per_step.get((kname, layer), 0.0)
                 rows.append(_time_row(
                     kname, layer, mod, kw, fn, plain, a, ins, pairs, width, n,
-                    launches_per_step=per, **splits[kname[:2]]))
+                    launches_per_step=per, **splits[kname[:2]], **tag))
             for kname, fn, plain, a, n, lib, walk_name in (
                     ("dw_product", tk.conv_dw_product,
                      tk.conv_dw_product_plain, (xbar, g2), centers_n,
@@ -1215,7 +1449,8 @@ def phase_times(calls, per_step):
                 rows.append(_time_row(
                     kname, layer, mod, kw, fn, plain, a, list(a), 0.0, 0, n,
                     library=lib, walk=walk,
-                    launches_per_step=per_step.get((walk_name, layer), 0.0)))
+                    launches_per_step=per_step.get((walk_name, layer), 0.0),
+                    **tag))
     return rows
 
 
@@ -1354,9 +1589,11 @@ def main():
     os.makedirs(tk._BUILD_DIR, exist_ok=True)     # ignored by git
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
         launches, _, served, model = phase_serve(dev, workdir)
-        trained, train_calls, per_step, seg_ck = phase_train(dev,
-                                                             workdir)
-        phase_serve_trained(dev, seg_ck)
+        trained, train_calls, per_step, ckpts = phase_train(dev, workdir)
+        phase_serve_trained(dev, ckpts[TRAIN_CONFIGS[0][0]])
+        phase_eval(dev, ckpts)
+        partseg_calls, partseg_per_step = phase_partseg(dev, workdir)
+        phase_batchnorm(dev, workdir)
     # each kernel's launches come from its own path: the forward's from the
     # serve phase, dW's and dX's from the training run of their walk
     for rec in trained.values():
@@ -1381,6 +1618,13 @@ def main():
     calls.update(train_calls)
     rows = phase_times(calls, per_step)
     rows += spatial_rows(served_part, ring_calls)
+    # ShapeNetPart's kernels at its widest-radius layer (the most pairs),
+    # held against their plain versions; the kernels line keeps the earlier
+    # paths' shapes
+    top = max(k[1] for k in partseg_calls)
+    phase_times({("fwd_dense", top): partseg_calls[("dw_dense", top)],
+                 ("dw_dense", top): partseg_calls[("dw_dense", top)]},
+                partseg_per_step, path="shapenetpart")
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]

@@ -107,10 +107,10 @@ def save_profiles(path, profiles):
                   f)
 
 
-def load_trained(model, checkpoint_dir):
+def load_trained(model, checkpoint_dir) -> int:
     """Load the newest trainer checkpoint of ``checkpoint_dir`` into
-    ``model``.  The JAX package's orbax checkpoints (numbered step
-    directories) are not readable here and say so."""
+    ``model``; returns its step.  The JAX package's orbax checkpoints
+    (numbered step directories) are not readable here and say so."""
     if not checkpoint_steps(checkpoint_dir):
         if os.path.isdir(checkpoint_dir) and any(
                 e.isdigit() and os.path.isdir(os.path.join(checkpoint_dir, e))
@@ -122,6 +122,24 @@ def load_trained(model, checkpoint_dir):
         raise FileNotFoundError(f"no trainer checkpoint in {checkpoint_dir}")
     state = load_checkpoint(checkpoint_dir, map_location="cpu")
     model.load_state_dict(state["model"], strict=True)
+    return int(state["step"])
+
+
+def load_weights(model, load_jax, checkpoint_dir=None,
+                 params_path=None) -> str | None:
+    """Load ``model``'s weights from the newest trainer checkpoint of
+    ``checkpoint_dir`` or from a JAX-layout ``.npz`` (through ``load_jax``,
+    a convert.py loader); returns what was loaded, None with neither."""
+    if checkpoint_dir and params_path:
+        raise ValueError("pass --checkpoint-dir or --params, not both")
+    if checkpoint_dir:
+        step = load_trained(model, checkpoint_dir)
+        return f"restored step {step} from {checkpoint_dir}"
+    if params_path:
+        with np.load(params_path) as z:
+            load_jax(model, {k: z[k] for k in z.files})
+        return f"loaded {params_path}"
+    return None
 
 
 def build_model(cfg, device, params_path=None, precision="bfloat16",
@@ -135,19 +153,10 @@ def build_model(cfg, device, params_path=None, precision="bfloat16",
         dropout_rate=cfg.dropout, norm=cfg.norm, impl=cfg.impl,
         precision=precision, use_global_context=False,  # locality => exact
         device=device)
-    if checkpoint_dir:
-        if params_path:
-            raise ValueError("pass --checkpoint-dir or --params, not both")
-        load_trained(model, checkpoint_dir)
-        return model.eval()
-    if params_path:
-        with np.load(params_path) as z:
-            variables = {k: z[k] for k in z.files}
-    else:
-        variables = random_segmenter_params(
+    if not load_weights(model, load_segmenter, checkpoint_dir, params_path):
+        load_segmenter(model, random_segmenter_params(
             cfg.in_features, cfg.num_classes, channels=cfg.channels,
-            head_dims=cfg.head_dims, norm=cfg.norm, seed=seed)
-    load_segmenter(model, variables)
+            head_dims=cfg.head_dims, norm=cfg.norm, seed=seed))
     return model.eval()
 
 

@@ -11,6 +11,7 @@ from pointwise_torch.models.layers import (  # noqa: F401
 )
 from pointwise_torch.models.segmenter import (  # noqa: F401
     PointwiseSegmenter,
+    ShapeNetPartSegmenter,
     segmentation_loss,
     segmentation_loss_sums,
 )

@@ -73,15 +73,44 @@ class PointwiseConv(nn.Module):
             precision=self.precision, mesh=self.mesh)
 
 
-class MaskedBatchNorm(nn.Module):
-    """BatchNorm in running-average mode, for checkpoints trained with
-    ``--norm batch`` (the JAX MaskedBatchNorm: params scale/bias, batch_stats
-    mean/var, epsilon 1e-5).  Batch statistics (training) arrive with the
-    training slice."""
+class SumAcross(torch.autograd.Function):
+    """``t`` summed over the members of ``group``: one SUM all-reduce
+    forward, and one SUM all-reduce of the cotangents backward (each
+    member's input feeds every member's output)."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5, device=None):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm whose batch moments ignore masked (padding) rows (a port of
+    the JAX ``MaskedBatchNorm``: params scale/bias as ``weight``/``bias``,
+    batch_stats mean/var as ``running_mean``/``running_var``).
+
+    Training: f32 moments over every non-feature axis of the rows ``mask``
+    keeps, the count clamped to 1 and the biased variance ``s2/cnt - mean^2``
+    clamped at 0; the running averages move to ``momentum * old + (1 -
+    momentum) * batch``, momentum 0.99.  Evaluation: the running averages.
+    Hand-written because ``nn.BatchNorm`` keeps an unbiased running
+    variance and the opposite momentum convention.
+
+    ``group``: the process group whose members hold the rest of the batch
+    (a mesh's ``world``); the moments' sums are then reduced over it
+    (``SumAcross``), so every member normalizes by the global moments."""
+
+    momentum = 0.99
+
+    def __init__(self, features: int, epsilon: float = 1e-5, group=None,
+                 device=None):
         super().__init__()
         self.epsilon = epsilon
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("running_mean",
@@ -90,17 +119,39 @@ class MaskedBatchNorm(nn.Module):
                              torch.ones(features, device=device))
 
     def forward(self, x, mask=None):
-        if self.training:
-            raise NotImplementedError(
-                "MaskedBatchNorm batch statistics: not yet ported (call "
-                ".eval() to use the running averages)")
-        y = (x.float() - self.running_mean) * torch.rsqrt(
-            self.running_var + self.epsilon)
+        xf = x.float()
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            m = (torch.ones(x.shape[:-1], device=x.device) if mask is None
+                 else mask.float())[..., None]
+            red = tuple(range(x.ndim - 1))
+            c = x.shape[-1]
+            sums = torch.cat([m.sum(red).expand(c), (xf * m).sum(red),
+                              (xf * xf * m).sum(red)])
+            if self.group is not None:
+                sums = SumAcross.apply(sums, self.group)
+            cnt, s, s2 = sums.split(c)
+            cnt = torch.clamp_min(cnt, 1.0)
+            mean = s / cnt
+            var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
+            with torch.no_grad():
+                self.running_mean.copy_(
+                    self.momentum * self.running_mean
+                    + (1.0 - self.momentum) * mean)
+                self.running_var.copy_(
+                    self.momentum * self.running_var
+                    + (1.0 - self.momentum) * var)
+        y = (xf - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.weight + self.bias).to(x.dtype)
 
 
 class PointwiseConvBlock(nn.Module):
-    """conv -> norm -> activation -> out-mask, the trunk unit of all nets."""
+    """conv -> norm -> activation -> out-mask, the trunk unit of all nets.
+    Under ``mesh`` a ``norm='batch'`` block reduces its moments over the
+    mesh's ``world`` group (``MaskedBatchNorm``): every rank holds part of
+    the batch, so the moments are global, as the JAX package's are under
+    --dp (a jit over the global batch) and --sp (``bn_axes``)."""
 
     def __init__(self, in_features: int, features: int, radius: float, *,
                  impl: str = "auto", norm: str = "layer",
@@ -114,7 +165,9 @@ class PointwiseConvBlock(nn.Module):
             # flax nn.LayerNorm's epsilon (torch's default is 1e-5)
             self.norm = nn.LayerNorm(features, eps=1e-6, device=device)
         elif norm == "batch":
-            self.norm = MaskedBatchNorm(features, device=device)
+            self.norm = MaskedBatchNorm(
+                features, group=None if mesh is None else mesh.group("world"),
+                device=device)
         elif norm == "none":
             self.norm = None
         else:
@@ -131,6 +184,17 @@ class PointwiseConvBlock(nn.Module):
         if out_mask is not None:
             y = y * out_mask.to(y.dtype)[..., None]
         return y
+
+
+def trunk(in_features: int, channels, radii, **block_kw) -> nn.ModuleList:
+    """The nets' stack of conv blocks, block i of width ``channels[i]`` and
+    radius ``radii[i]`` (``PointwiseConvBlock_i`` of the JAX tree)."""
+    if len(channels) != len(radii):
+        raise ValueError("channels and radii must have the same length")
+    widths = [in_features, *channels]
+    return nn.ModuleList(
+        PointwiseConvBlock(widths[i], c, r, **block_kw)
+        for i, (c, r) in enumerate(zip(channels, radii)))
 
 
 class PoolAcross(torch.autograd.Function):

@@ -1,9 +1,11 @@
-"""Per-point semantic segmentation network (S3DIS / SceneNN style).
+"""Per-point segmentation networks (S3DIS / SceneNN / ShapeNetPart).
 
-A port of ``PointwiseSegmenter`` from pointwise_tpu/models/segmenter.py:
-the pointwise-conv trunk with features from every trunk layer concatenated
+A port of pointwise_tpu/models/segmenter.py: ``PointwiseSegmenter``, the
+pointwise-conv trunk with features from every trunk layer concatenated
 (dense skip) into a per-point classifier head, plus ``streaming_logits``,
-the shrinking-halo forward of the exact streaming engine (streaming.py).
+the shrinking-halo forward of the exact streaming engine (streaming.py);
+``ShapeNetPartSegmenter``, the deeper part segmenter conditioned on the
+object category; and the masked segmentation losses.
 """
 
 from __future__ import annotations
@@ -13,8 +15,8 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from pointwise_torch.models.layers import (PointwiseConvBlock, context_group,
-                                           dense, masked_pool)
+from pointwise_torch.models.layers import (context_group, dense, masked_pool,
+                                           trunk)
 
 
 class PointwiseSegmenter(nn.Module):
@@ -27,8 +29,9 @@ class PointwiseSegmenter(nn.Module):
 
     Spatial sharding: ``impl='spatial:space[:ring]'`` convolves over
     ``mesh``'s space group, and ``context_axes=('space',)`` makes the
-    global-context pool reduce across it (the JAX model's fields of the
-    same names).
+    global-context pool reduce across it (the JAX model's field of the same
+    name); under ``mesh`` the ``norm='batch'`` moments are global over it
+    (``PointwiseConvBlock``).
     """
 
     def __init__(self, num_classes: int, in_features: int, *,
@@ -38,19 +41,15 @@ class PointwiseSegmenter(nn.Module):
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
                  use_global_context: bool = True,
-                 context_axes: Sequence[str] = (), mesh=None, device=None,
+                 context_axes: Sequence[str] = (),
+                 mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if len(channels) != len(radii):
-            raise ValueError("channels and radii must have the same length")
         self.use_global_context = use_global_context
         self.context = context_group(mesh, context_axes)
-        widths = [in_features, *channels]
-        self.blocks = nn.ModuleList(
-            PointwiseConvBlock(widths[i], c, r, impl=impl, norm=norm,
-                               precision=precision, mesh=mesh, device=device,
-                               generator=generator)
-            for i, (c, r) in enumerate(zip(channels, radii)))
+        self.blocks = trunk(in_features, channels, radii, impl=impl,
+                            norm=norm, precision=precision, mesh=mesh,
+                            device=device, generator=generator)
         h = sum(channels) + (2 * channels[-1] if use_global_context else 0)
         dims = [h, *head_dims]
         self.head = nn.ModuleList(
@@ -133,25 +132,92 @@ class PointwiseSegmenter(nn.Module):
         return self._head(h, prefix_mask(len(self.blocks), lengths[-1]))
 
 
-def segmentation_loss_sums(logits, labels, mask=None):
+class ShapeNetPartSegmenter(nn.Module):
+    """Part segmentation conditioned on the object category (a port of the
+    JAX ``ShapeNetPartSegmenter``): a deeper trunk, and a head that reads
+    every block's features, the masked max and mean pool of the last block
+    and the category's one-hot through ``embed`` (64 wide), broadcast to
+    every point.
+
+    Submodules: ``blocks``, ``embed`` (the JAX tree's ``Dense_0``: flax
+    names the category embedding first), ``head`` (``Dense_1`` ..) and
+    ``out`` (the last ``Dense_*``); convert.py maps them.  ``context_axes``
+    and ``mesh`` as in ``PointwiseSegmenter``."""
+
+    def __init__(self, num_parts: int = 50, num_categories: int = 16,
+                 in_features: int = 3, *,
+                 channels: Sequence[int] = (124, 124, 124, 124, 124, 124),
+                 radii: Sequence[float] = (0.15, 0.25, 0.4, 0.6, 0.9, 1.4),
+                 head_dims: Sequence[int] = (256, 128),
+                 dropout_rate: float = 0.3, norm: str = "layer",
+                 impl: str = "auto", precision: str = "bfloat16",
+                 context_axes: Sequence[str] = (),
+                 mesh=None, device=None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.num_categories = num_categories
+        self.context = context_group(mesh, context_axes)
+        self.blocks = trunk(in_features, channels, radii, impl=impl,
+                            norm=norm, precision=precision, mesh=mesh,
+                            device=device, generator=generator)
+        self.embed = dense(num_categories, 64, device, generator)
+        dims = [sum(channels) + 2 * channels[-1] + 64, *head_dims]
+        self.head = nn.ModuleList(
+            dense(dims[i], d, device, generator)
+            for i, d in enumerate(head_dims))
+        self.drop = nn.Dropout(dropout_rate)
+        self.out = dense(dims[-1], num_parts, device, generator)
+
+    def forward(self, points, category, features=None, mask=None):
+        """points (B,N,3); category (B,) int ids; features (B,N,C) or None
+        -> xyz.  Returns (B, N, num_parts) logits, zero where masked."""
+        x = points if features is None else features
+        skips = []
+        for blk in self.blocks:
+            x = blk(points, x, mask)
+            skips.append(x)
+        h = torch.cat(skips, dim=-1)
+        onehot = nn.functional.one_hot(category.long(),
+                                       self.num_categories).to(h.dtype)
+        g = torch.cat([masked_pool(x, mask, self.context),
+                       self.embed(onehot)], dim=-1)
+        h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
+        for lin in self.head:
+            h = self.drop(torch.relu(lin(h)))
+        logits = self.out(h)
+        if mask is not None:
+            logits = logits * mask.to(logits.dtype)[..., None]
+        return logits
+
+
+def _log_likelihood(logits, labels, class_weights):
+    """Per-point log-probability of the label, times its class weight."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    if class_weights is not None:
+        ll = ll * class_weights[labels.long()]
+    return ll
+
+
+def segmentation_loss_sums(logits, labels, mask=None, class_weights=None):
     """Shard-local sums of ``segmentation_loss`` (the trainer's sums
     contract under a mesh): (nll sum, weight, {"accuracy": correct sum}).
     Summed over the mesh and divided by the summed weight they give the
     global masked means exactly (a masked mean is not linear across shards,
     sums are)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    ll = _log_likelihood(logits, labels, class_weights)
     correct = (logits.argmax(-1) == labels).float()
     m = torch.ones_like(ll) if mask is None else mask.float()
     return -(ll * m).sum(), m.sum(), {"accuracy": (correct * m).sum()}
 
 
-def segmentation_loss(logits, labels, mask=None):
+def segmentation_loss(logits, labels, mask=None, class_weights=None):
     """Masked per-point softmax cross-entropy and accuracy (the JAX
     package's ``segmentation_loss``).  logits (B, N, K); labels (B, N) int;
-    mask (B, N) or None.  Returns (loss, accuracy), f32 scalars."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    mask (B, N) or None; ``class_weights`` (K,) scales each point's
+    log-likelihood by its label's weight.  Returns (loss, accuracy), f32
+    scalars."""
+    ll = _log_likelihood(logits, labels, class_weights)
     correct = (logits.argmax(-1) == labels).float()
     if mask is None:
         return -ll.mean(), correct.mean()

@@ -178,21 +178,27 @@ def train_worker(mesh, *, kind: str, model_kwargs: dict, state: dict,
                  checkpoint_dir: str | None = None, save_after: int = 0,
                  restore: bool = False) -> dict:
     """Trainer steps under the mesh with the sums-contract loss of ``kind``
-    ("seg" or "cls") on global numpy batches, one per seed.  With
+    ("seg", "partseg" or "cls") on global numpy batches, one per seed.  With
     ``restore`` the trainer first restores ``checkpoint_dir``; with
     ``save_after`` it checkpoints there after that many steps.  Returns the
     per-step metrics, the evaluation of ``eval_batches`` and the final
     state_dict."""
-    from pointwise_torch.models import PointwiseClassifier, PointwiseSegmenter
-    from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
+    from pointwise_torch.models import (PointwiseClassifier,
+                                        PointwiseSegmenter,
+                                        ShapeNetPartSegmenter)
+    from pointwise_torch.parallel.spmd import (cls_spmd_loss_fn,
+                                               partseg_spmd_loss_fn,
+                                               seg_spmd_loss_fn)
     from pointwise_torch.train.trainer import Trainer
 
     dev = mesh.device
-    cls = PointwiseSegmenter if kind == "seg" else PointwiseClassifier
+    cls, loss_fn = {
+        "seg": (PointwiseSegmenter,
+                seg_spmd_loss_fn(jitter_sigma=jitter_sigma)),
+        "partseg": (ShapeNetPartSegmenter, partseg_spmd_loss_fn()),
+        "cls": (PointwiseClassifier, cls_spmd_loss_fn())}[kind]
     model = cls(**model_kwargs, mesh=mesh, device=dev)
     model.load_state_dict(state)
-    loss_fn = (seg_spmd_loss_fn(jitter_sigma=jitter_sigma) if kind == "seg"
-               else cls_spmd_loss_fn())
     trainer = Trainer(model, loss_fn, opt_cfg, mesh=mesh,
                       space_axis=space_axis, rng_axes=rng_axes)
     if restore:

@@ -43,6 +43,20 @@ def seg_spmd_loss_fn(*, jitter_sigma: float = 0.0,
     return loss_fn
 
 
+def partseg_spmd_loss_fn() -> Callable:
+    """loss_fn(model, batch, generator, train) -> (nll sum, weight, sums)
+    of a ``ShapeNetPartSegmenter`` on its shard of the batch (no
+    augmentation: the JAX package trains part segmentation with dropout
+    only)."""
+
+    def loss_fn(model, batch, generator, train):
+        logits = model(batch["points"], batch["category"],
+                       mask=batch["mask"])
+        return segmentation_loss_sums(logits, batch["label"], batch["mask"])
+
+    return loss_fn
+
+
 def cls_spmd_loss_fn() -> Callable:
     """loss_fn(model, batch, generator, train) -> (nll sum, rows, sums) of a
     classifier.  Its only randomness is head dropout after the pool, which

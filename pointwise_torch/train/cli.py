@@ -1,19 +1,25 @@
 """Training CLI: ``python -m pointwise_torch.train``.
 
-A port of train.py (segmentation and classification):
+A port of train.py (segmentation, SceneNN, ShapeNetPart and
+classification):
 
   python -m pointwise_torch.train --config s3dis_synthetic_local --steps 20
   python -m pointwise_torch.train --config modelnet40_synthetic --steps 20
+  python -m pointwise_torch.train --config shapenetpart --steps 20
   python -m pointwise_torch.train --config seg_tiny_local --steps 3 --device cpu
+  python -m pointwise_torch.train --config seg_tiny_local --norm batch \
+      --steps 3 --device cpu
   torchrun --nproc-per-node 4 -m pointwise_torch.train --dp \
       --config s3dis_synthetic_local
   torchrun --nproc-per-node 4 -m pointwise_torch.train --sp 2 \
       --config s3dis_synthetic_local
 
-``--dp`` trains data-parallel over every rank (either configuration);
-``--sp N`` shards the point dim of segmentation over N ranks (the rest
-data-parallel), with the model's convs on ``impl='spatial:space'`` (the
-gather strategy).  Rank r of a torchrun launch computes on
+``--dp`` trains data-parallel over every rank (any configuration);
+``--sp N`` shards the point dim of semantic segmentation over N ranks (the
+rest data-parallel), with the model's convs on ``impl='spatial:space'``
+(the gather strategy).  ``--norm batch`` trains with masked BatchNorm
+(``MaskedBatchNorm``); under a mesh its moments are reduced over every
+rank, so the sharded step normalizes as the single-device one does.  Rank r of a torchrun launch computes on
 ``cuda:<LOCAL_RANK>`` (NCCL); the CLI refuses to start with fewer cards
 than local ranks.  Without a launcher ``--dp`` runs as one rank.  Every
 rank builds the same global batch from the seed and trains on its shard
@@ -41,16 +47,20 @@ import torch
 import torch.distributed as dist
 
 from pointwise_torch import resolve_device
-from pointwise_torch.data import augment, modelnet, pipeline, s3dis
+from pointwise_torch.data import (augment, modelnet, pipeline, s3dis,
+                                  scenenn, shapenetpart)
 from pointwise_torch.models import (
     PointwiseClassifier,
     PointwiseSegmenter,
+    ShapeNetPartSegmenter,
     classification_loss,
     segmentation_loss,
 )
 from pointwise_torch.parallel.mesh import (default_backend, init_distributed,
                                            make_mesh)
-from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
+from pointwise_torch.parallel.spmd import (cls_spmd_loss_fn,
+                                           partseg_spmd_loss_fn,
+                                           seg_spmd_loss_fn)
 from pointwise_torch.train.configs import ClassificationConfig, get_config
 from pointwise_torch.train.trainer import Trainer, log_metrics, step_seed
 
@@ -122,11 +132,12 @@ def _init_generator(cfg) -> torch.Generator:
     return torch.Generator().manual_seed(cfg.seed)
 
 
-def build_classifier(cfg: ClassificationConfig, device):
+def build_classifier(cfg: ClassificationConfig, device, mesh=None):
     model = PointwiseClassifier(
         num_classes=cfg.num_classes, channels=cfg.channels, radii=cfg.radii,
         head_dims=cfg.head_dims, dropout_rate=cfg.dropout, norm=cfg.norm,
-        impl=cfg.impl, generator=_init_generator(cfg)).to(device)
+        impl=cfg.impl, mesh=mesh,
+        generator=_init_generator(cfg)).to(device)
 
     def loss_fn(model, batch, generator, train):
         pts = batch["points"]
@@ -151,13 +162,33 @@ def build_segmenter(cfg, device, mesh=None, jitter=SEG_JITTER):
         impl="spatial:space" if spatial else cfg.impl,
         use_global_context=cfg.global_context,
         context_axes=("space",) if spatial and cfg.global_context else (),
-        mesh=mesh, generator=_init_generator(cfg)).to(device)
+        mesh=mesh,
+        generator=_init_generator(cfg)).to(device)
 
     def loss_fn(model, batch, generator, train):
         pts = batch["points"]
         if train:
             pts = augment.jitter(pts, generator, sigma=jitter, clip=0.02)
         logits = model(pts, batch["features"], batch["mask"])
+        loss, acc = segmentation_loss(logits, batch["label"], batch["mask"])
+        return loss, {"accuracy": acc}
+
+    return model, loss_fn
+
+
+def build_partseg(cfg, data, device, mesh=None):
+    """The part segmenter (``data.num_parts`` parts, ``data.num_categories``
+    categories) and its loss; no augmentation, dropout only."""
+    model = ShapeNetPartSegmenter(
+        num_parts=data.num_parts, num_categories=data.num_categories,
+        in_features=cfg.in_features, channels=cfg.channels, radii=cfg.radii,
+        head_dims=cfg.head_dims, dropout_rate=cfg.dropout, norm=cfg.norm,
+        impl=cfg.impl, mesh=mesh,
+        generator=_init_generator(cfg)).to(device)
+
+    def loss_fn(model, batch, generator, train):
+        logits = model(batch["points"], batch["category"],
+                       mask=batch["mask"])
         loss, acc = segmentation_loss(logits, batch["label"], batch["mask"])
         return loss, {"accuracy": acc}
 
@@ -184,7 +215,7 @@ def train_classification(cfg: ClassificationConfig, args, device,
     ncls = max(train_data.num_classes, test_data.num_classes)
     if ncls != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=ncls)
-    model, loss_fn = build_classifier(cfg, device)
+    model, loss_fn = build_classifier(cfg, device, mesh)
 
     def augment_clouds(batch, generator):
         # per-cloud augmentation of the global batch, before sharding
@@ -211,7 +242,12 @@ def train_segmentation(cfg, args, device, on_step=None, mesh=None,
                        jitter=SEG_JITTER) -> Trainer:
     # heldout ROOMS for the periodic eval: overlapping-stride blocks of one
     # room share points, so a block-level split would leak
-    rooms = s3dis.load_rooms(cfg.data_dir or args.data_dir, seed=cfg.seed)
+    if cfg.name.startswith("scenenn"):
+        # the NYU-40 scenes (real or the 40-class procedural stand-in)
+        rooms = scenenn.load_scenes(cfg.data_dir or args.data_dir,
+                                    seed=cfg.seed)
+    else:
+        rooms = s3dis.load_rooms(cfg.data_dir or args.data_dir, seed=cfg.seed)
     if len(rooms) >= 2:
         n_eval = max(1, len(rooms) // 10)
         eval_blocks = s3dis.training_blocks(cfg, rooms=rooms[:n_eval])
@@ -243,6 +279,25 @@ def train_segmentation(cfg, args, device, on_step=None, mesh=None,
         on_step=on_step)
 
 
+def train_shapenetpart(cfg, args, device, on_step=None,
+                       mesh=None) -> Trainer:
+    """Part segmentation on the train split: dropout only, no periodic
+    evaluation (``python -m pointwise_torch.eval`` scores a checkpoint)."""
+    data = shapenetpart.load_shapenetpart(
+        cfg.data_dir or args.data_dir, "train", cfg.num_points, seed=cfg.seed,
+        variant=cfg.variant)
+    model, loss_fn = build_partseg(cfg, data, device, mesh)
+    trainer = _trainer(model, loss_fn, partseg_spmd_loss_fn(), cfg, mesh)
+    steps_per_epoch = max(1, len(data.category) // cfg.batch_size)
+    return run_train_loop(
+        trainer, cfg, args,
+        make_epoch_iter=lambda epoch: shapenetpart.batches(
+            data, cfg.batch_size, seed=cfg.seed + epoch),
+        steps_per_epoch=steps_per_epoch,
+        max_steps=args.steps or cfg.epochs * steps_per_epoch,
+        on_step=on_step)
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m pointwise_torch.train")
     ap.add_argument("--config", default="modelnet40_synthetic")
@@ -258,7 +313,8 @@ def parse_args(argv=None):
                          "randomness)")
     ap.add_argument("--norm", default=None, choices=["layer", "batch", "none"],
                     help="override the config's normalization ('batch': "
-                         "not yet ported)")
+                         "masked BatchNorm, moments over every rank of a "
+                         "mesh)")
     ap.add_argument("--tensorboard", default=None,
                     help="tf.summary logdir: not yet ported")
     ap.add_argument("--dp", action="store_true",
@@ -311,15 +367,13 @@ def main(argv=None, on_step=None, mesh=None) -> Trainer:
     cfg = get_config(args.config)
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
-    if cfg.norm == "batch":
-        raise NotImplementedError(
-            "--norm batch (MaskedBatchNorm batch statistics, and under --sp "
-            "their sync over the mesh): not yet ported")
-    if cfg.name.startswith(("shapenetpart", "scenenn")):
-        raise NotImplementedError(f"config {cfg.name}: not yet ported")
+    partseg = cfg.name.startswith("shapenetpart")
     if args.sp > 1 and isinstance(cfg, ClassificationConfig):
         raise NotImplementedError("--sp for classification (a classifier "
                                   "built with space shards): not yet ported")
+    if args.sp > 1 and partseg:
+        raise ValueError("--sp shards semantic segmentation only; train "
+                         "ShapeNetPart with --dp (as train.py does)")
     if args.seed is not None:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     if args.checkpoint_dir:
@@ -344,4 +398,6 @@ def main(argv=None, on_step=None, mesh=None) -> Trainer:
                   f"backend={mesh.backend}", flush=True)
     if isinstance(cfg, ClassificationConfig):
         return train_classification(cfg, args, device, on_step, mesh)
+    if partseg:
+        return train_shapenetpart(cfg, args, device, on_step, mesh)
     return train_segmentation(cfg, args, device, on_step, mesh)

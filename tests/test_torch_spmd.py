@@ -32,7 +32,6 @@ from pointwise_tpu.train.configs import OptimizerConfig as JaxOpt
 from pointwise_torch.convert import classifier_state_dict, segmenter_state_dict
 from pointwise_torch.parallel import init_distributed, launch
 from pointwise_torch.train import cli
-from pointwise_torch.train.cli import main
 from pointwise_torch.train.configs import OptimizerConfig
 
 RUN_LIMIT = 240       # seconds for one spawned run, start to end
@@ -208,12 +207,6 @@ def test_train_cli_dp_and_sp(tmp_path, argv, data, space):
             assert 0.0 <= m["accuracy"] <= 1.0
     assert all(r["metrics"] == res[0]["metrics"] for r in res)
     _same_on_every_rank(res)
-
-
-def test_sp_with_batch_norm_still_raises():
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        main(["--config", "seg_tiny_local", "--sp", "2", "--norm", "batch",
-              "--device", "cpu", "--steps", "1"])
 
 
 def test_launch_rules_without_a_launcher(monkeypatch):

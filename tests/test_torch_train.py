@@ -26,13 +26,15 @@ from pointwise_tpu.models import PointwiseClassifier as JaxClassifier
 from pointwise_tpu.models import PointwiseSegmenter as JaxSegmenter
 from pointwise_tpu.models import classification_loss as jax_cls_loss
 from pointwise_tpu.models import segmentation_loss as jax_seg_loss
+from pointwise_tpu.models import segmentation_loss_sums as jax_seg_loss_sums
 from pointwise_tpu.train import trainer as jax_trainer
 from pointwise_tpu.train.configs import OptimizerConfig
 from pointwise_torch.convert import (classifier_state_dict, load_classifier,
                                      load_segmenter, random_segmenter_params,
                                      segmenter_state_dict)
 from pointwise_torch.models import (PointwiseClassifier, PointwiseSegmenter,
-                                    classification_loss, segmentation_loss)
+                                    classification_loss, segmentation_loss,
+                                    segmentation_loss_sums)
 from pointwise_torch.train import trainer as tt
 
 CH, RADII, HEAD, NCLS = (8, 8), (0.3, 0.6), (16,), 5
@@ -180,14 +182,26 @@ def test_losses_match_jax():
     logits = rng.standard_normal((2, 30, 5)).astype(np.float32) * 3
     labels = rng.randint(0, 5, (2, 30)).astype(np.int32)
     mask = (rng.rand(2, 30) > 0.3).astype(np.float32)
+    weights = rng.uniform(0.2, 2.0, 5).astype(np.float32)
     t = torch.from_numpy
     for m in (None, mask):
-        want = jax_seg_loss(jnp.asarray(logits), jnp.asarray(labels),
-                            None if m is None else jnp.asarray(m))
-        got = segmentation_loss(t(logits), t(labels),
-                                None if m is None else t(m))
-        for a, b in zip(got, want):
-            np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
+        for w in (None, weights):
+            want = jax_seg_loss(jnp.asarray(logits), jnp.asarray(labels),
+                                None if m is None else jnp.asarray(m),
+                                class_weights=None if w is None
+                                else jnp.asarray(w))
+            got = segmentation_loss(t(logits), t(labels),
+                                    None if m is None else t(m),
+                                    class_weights=None if w is None else t(w))
+            for a, b in zip(got, want):
+                np.testing.assert_allclose(float(a), float(b), rtol=1e-6)
+    want = jax_seg_loss_sums(jnp.asarray(logits), jnp.asarray(labels),
+                             jnp.asarray(mask), jnp.asarray(weights))
+    got = segmentation_loss_sums(t(logits), t(labels), t(mask), t(weights))
+    np.testing.assert_allclose(float(got[0]), float(want[0]), rtol=1e-6)
+    np.testing.assert_allclose(float(got[1]), float(want[1]), rtol=1e-6)
+    np.testing.assert_allclose(float(got[2]["accuracy"]),
+                               float(want[2]["accuracy"]), rtol=1e-6)
     want = jax_cls_loss(jnp.asarray(logits[0]), jnp.asarray(labels[0]))
     got = classification_loss(t(logits[0]), t(labels[0]))
     for a, b in zip(got, want):

@@ -66,8 +66,15 @@ def test_cli_classification_prints_finite_metrics(capsys):
 
 @pytest.mark.parametrize("config", ["cls_tiny", "seg_tiny_local"])
 def test_resume_is_bitwise_equal(config, tmp_path):
+    assert_resumed_run_equal(["--config", config, "--device", "cpu"],
+                              tmp_path)
+
+
+def assert_resumed_run_equal(common, tmp_path):
+    """Four steps straight == two steps, a checkpoint, and a resumed run to
+    four, bit for bit (the model and the saved checkpoints); returns the
+    final state_dict."""
     a, b = os.fspath(tmp_path / "a"), os.fspath(tmp_path / "b")
-    common = ["--config", config, "--device", "cpu"]
     full = main(common + ["--steps", "4", "--checkpoint-dir", a])
     main(common + ["--steps", "2", "--checkpoint-dir", b])
     resumed = main(common + ["--steps", "4", "--checkpoint-dir", b,
@@ -81,6 +88,7 @@ def test_resume_is_bitwise_equal(config, tmp_path):
     assert sa["step"] == sb["step"] == 4 and sa["extra"] == sb["extra"]
     for k in sa["model"]:
         assert torch.equal(sa["model"][k], sb["model"][k]), k
+    return want
 
 
 def test_checkpoints_keep_newest(tmp_path):
@@ -105,9 +113,8 @@ def test_cuda_default_without_card_fails():
         main(["--config", "cls_tiny", "--steps", "1", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("extra", [
-    ["--dp", "--norm", "batch"], ["--sp", "2"], ["--norm", "batch"],
-    ["--tensorboard", "tb"], ["--config", "shapenetpart_tiny"]])
+@pytest.mark.parametrize("extra", [["--sp", "2"], ["--tensorboard", "tb"]],
+                         ids=["extra1", "extra3"])
 def test_not_yet_ported_options_fail(extra):
     # --sp shards segmentation only: a classifier built with space shards
     # is not reached through the CLI
