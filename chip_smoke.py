@@ -86,6 +86,34 @@ Phases, each printing one JSON line:
            package's bf16 SPMD pin), grad norm > 0, its launches (counts
            zeroed just before, read just after, summed over the ranks) and
            ms/step.  No rate of (b) is a multi-card number;
+  serve_parallel  infer's --serve under a mesh: ranks spawned on cuda:0
+           over gloo run ``launch.serve_worker`` (infer.main) with the
+           serve phase's model and weights: --dp on 2 ranks (data 2), --sp
+           2 on 2 (space 2), --dp --sp 2 on 4 (data 2 x space 2); each
+           warms on 200K, then serves synth:200000, does_not_exist.npy
+           (one error reply, the ranks keep serving), synth:1000000 and
+           the small-object scan file; per run every reply, each rank's
+           forward launches (counts zeroed just before, read just after;
+           every rank must launch both walks and the product), each rank's
+           resident-scene bytes of the 1M request (halved under space 2),
+           and the 200K scene's logits through stream_apply_layered under
+           the run's mesh against the single-device engine: bit for bit
+           under space 2 alone, within 1e-4 x max |logit| under data 2;
+           and rank 0's accuracy and mIoU of each served scene against the
+           serve phase's single-device replies to the same requests:
+           equal under space 2 alone, within 1e-4 (one unit of the
+           replies' fourth decimal) under data 2.  Its rates are of ranks
+           sharing one card over gloo, not multi-card rates;
+  subblock pointwise_conv(..., subblock=8) at layer 0 of
+           s3dis_synthetic_local (the first training batch, 8 x 4096
+           morton-sorted block points, 6 -> 124, radius 0.1, bf16): the
+           forward and loss.backward() with the sub-block branch (its cap
+           set to the block, as the default cap of 3 x 512 overflows on
+           these blocks) against the plain conv (``compare``'s bf16
+           tolerance, ``compare_grad``), the branch the default cap takes,
+           and radius 2.0 (larger than the block), which must take the
+           plain conv; the CUDA-event ms of the forward and backward of
+           each;
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -1226,6 +1254,216 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
     return launches, calls
 
 
+# (name, infer flags, data, space) of the serve_parallel runs
+SERVE_MESHES = (("dp", ["--dp"], 2, 1), ("sp", ["--sp", "2"], 1, 2),
+                ("dp_sp", ["--dp", "--sp", "2"], 2, 2))
+# data-2 logits against one device: the head's Linear layers are cuBLAS
+# calls whose algorithm may change with the rows per rank
+DATA_LOGITS_RTOL = 1e-4
+# data-2 accuracy / mIoU against one device: a logit within that tolerance
+# may flip one point's argmax, which moves a metric rounded to 4 decimals
+# by at most one unit
+DATA_METRIC_ATOL = 1e-4
+
+
+def serve_parallel_worker(mesh, argv, requests, config, scene):
+    """One rank of a serve_parallel run (spawned by
+    pointwise_torch.parallel.launch, which imports this module): the
+    serve CLI under the mesh, then the served model's logits of ``scene``
+    through the engine under the same mesh."""
+    import torch
+
+    from pointwise_torch.parallel import launch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = launch.serve_worker(mesh, argv=argv, requests=requests)
+    out["logits"] = launch.stream_worker(
+        mesh, config=config, scenes=[scene],
+        precision="bfloat16", tile_size=4.0)["outs"][0]
+    return out
+
+
+def phase_serve_parallel(dev, workdir, smi, single_replies,
+                         config="s3dis_synthetic",
+                         sizes=(200_000, 1_000_000), warm_points=200_000):
+    """infer --serve --dp / --sp on ranks sharing cuda:0 over gloo, against
+    the single-device engine (the logits of a ``sizes[0]``-point scene) and
+    the single-device server (``single_replies``: its replies to
+    synth:<sizes[0]>, synth:<sizes[1]> and the scan file, in that order).
+    Returns {run: summary}."""
+    import numpy as np
+
+    from pointwise_torch import infer
+    from pointwise_torch.parallel import launch
+    from pointwise_torch.streaming import stream_apply_layered
+    from pointwise_torch.train import get_config
+
+    cfg = get_config(config)
+    model = infer.build_model(cfg, dev)
+    xyz, rgb, _ = infer.big_scene(sizes[0], seed=3)
+    feats = infer.scene_features(cfg, xyz, rgb)
+    single = stream_apply_layered(infer.layered_apply(model), xyz, feats,
+                                  radii=cfg.radii, tile_size=4.0,
+                                  out_dim=cfg.num_classes, device=dev)
+    scale = float(np.abs(single).max())
+    scan = small_scan_file(os.path.join(workdir, "scan.npy"))
+    requests = [f"synth:{sizes[0]}", "does_not_exist.npy", f"synth:{sizes[1]}",
+                scan, "quit"]
+    out = {}
+    for name, flags, data, space in SERVE_MESHES:
+        argv = ["--serve", "--config", config, "--device",
+                dev.type, "--warm-points", str(warm_points), *flags]
+        t0 = time.perf_counter()
+        ranks = launch.spawn(serve_parallel_worker, data * space,
+                             os.path.join(workdir, name), data=data,
+                             space=space, backend="gloo",
+                             device="cuda:0" if dev.type == "cuda" else "cpu",
+                             kwargs=dict(argv=argv, requests=requests,
+                                         config=config, scene=(xyz, feats)),
+                             timeout=300, comm_timeout=240, threads=2)
+        wall = time.perf_counter() - t0
+        replies = ranks[0]["replies"]
+        for rec in replies:
+            emit({"phase": "serve_parallel", "run": name, "reply": rec})
+        errors = [r for r in replies if "error" in r]
+        served = [r for r in replies[1:] if "error" not in r]
+        big = max(served, key=lambda r: r["n_points"])
+        resident = [max(r["scenes"], key=lambda s: s["points"])
+                    for r in ranks]
+        diff = [float(np.abs(r["logits"] - single).max()) for r in ranks]
+        tol = 0.0 if data == 1 else DATA_LOGITS_RTOL * scale
+        metric_tol = 0.0 if data == 1 else DATA_METRIC_ATOL
+        metric_diff = [abs(got[k] - want[k])
+                       for got, want in zip(served, single_replies)
+                       for k in ("accuracy", "miou")]
+        fwd = ("fwd_csr", "fwd_dense", "fwd_product")
+        rec = dict(
+            run=name, data=data, space=space, ranks=data * space,
+            wall_s=wall, pts_per_s={r["scene"]: r["pts_per_s"]
+                                    for r in served},
+            launches=[{k: r["launches"][k] for k in fwd} for r in ranks],
+            coords=[list(r["coords"]) for r in ranks],
+            resident_bytes_1m=[s["resident_bytes"] for s in resident],
+            resident_points_1m=resident[0]["points"],
+            logits_points=len(xyz), logits_max_abs_diff=diff,
+            logits_tol=tol, max_abs_logit=scale,
+            metrics_vs_single_device=[
+                {k: (got[k], want[k]) for k in ("accuracy", "miou")}
+                for got, want in zip(served, single_replies)],
+            metric_max_abs_diff=max(metric_diff), metric_tol=metric_tol,
+            bit_identical=[bool(np.array_equal(r["logits"], single))
+                           for r in ranks],
+            communication="one shared card, gloo (host-staged); not a "
+                          "multi-card rate", nvidia_smi=smi)
+        emit({"phase": "serve_parallel", **rec})
+        want_bytes = -(-resident[0]["points"] // space) * 4 * (
+            3 + cfg.in_features)
+        if not (replies and replies[0].get("ready") and len(errors) == 1
+                and errors[0]["scene"] == "does_not_exist.npy"
+                and len(served) == 3 and "output" in served[-1]
+                and len(single_replies) == 3
+                and [r["n_points"] for r in served]
+                == [r["n_points"] for r in single_replies]
+                and max(metric_diff) <= metric_tol
+                and big["n_points"] == resident[0]["points"]
+                and all(ranks[i]["replies"] == [] for i in range(1,
+                                                                len(ranks)))
+                and all(v > 0 for r in rec["launches"] for v in r.values())
+                and all(b == want_bytes for b in rec["resident_bytes_1m"])
+                and all(d <= tol for d in diff)
+                and (data > 1 or all(rec["bit_identical"]))):
+            raise AssertionError(f"parallel serving failed: {rec}")
+        out[name] = rec
+    return out
+
+
+def phase_subblock(dev, subblock=8, reps=5):
+    """The op's sub-block mode at layer 0 of s3dis_synthetic_local on its
+    first training batch: the forward and loss.backward() of each branch
+    against the plain conv, and their CUDA-event ms."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.train import get_config
+
+    op = importlib.import_module("pointwise_torch.ops.pointwise_conv")
+    cfg = get_config("s3dis_synthetic_local")
+    batch = spatial_batches(cfg, 1)[0]
+    points, feats, mask = (torch.from_numpy(batch[k]).to(dev)
+                           for k in ("points", "features", "mask"))
+    n = points.shape[1]
+    rng = np.random.RandomState(9)
+    cin, cout = feats.shape[2], cfg.channels[0]
+    w = torch.from_numpy((rng.standard_normal((27, cin, cout))
+                          / np.sqrt(27 * cin)).astype(np.float32)).to(dev)
+    bias = torch.from_numpy((rng.standard_normal(cout) * 0.1).astype(
+        np.float32)).to(dev)
+    branches = []
+    plain_conv = op.pointwise_conv
+
+    def spy(*args, **kw):
+        if kw.get("centers") is not None:
+            branches.append("subblock")
+        return plain_conv(*args, **kw)
+
+    def step(radius, **kw):
+        f, wt = (t.clone().requires_grad_(True) for t in (feats, w))
+        y = plain_conv(points, f, wt, bias, radius=radius, mask=mask,
+                       precision="bfloat16", **kw)
+        (y.float() ** 2).sum().backward()
+        return y, f.grad, wt.grad
+
+    def run(radius, **kw):
+        """(outputs, branch taken, launches, forward+backward ms)"""
+        del branches[:]
+        op.pointwise_conv = spy
+        try:
+            tk.reset_launches()
+            outs = step(radius, **kw)
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in tk.LAUNCHES.items() if v}
+            taken = branches[0] if branches else "plain"
+        finally:
+            op.pointwise_conv = plain_conv
+        ms = cuda_time_ms(lambda: step(radius, **kw), reps=reps)
+        return outs, taken, launches, ms
+
+    radius = cfg.radii[0]
+    dense, _, dense_launches, dense_ms = run(radius)
+    sub, taken, sub_launches, sub_ms = run(radius, subblock=subblock,
+                                           subblock_cap=n)
+    checks = {}
+    for key, a, b, cmp in (("y", sub[0], dense[0], compare),
+                           ("d_features", sub[1], dense[1], compare_grad),
+                           ("d_weights", sub[2], dense[2], compare_grad)):
+        checks[f"{key}_max_abs_err"], checks[f"{key}_ok"] = cmp(
+            a.detach().float(), b.detach().float(), "bfloat16")
+    _, default_taken, _, default_ms = run(radius, subblock=subblock)
+    wide = cfg.block_size * 2
+    over, over_taken, _, over_ms = run(wide, subblock=subblock)
+    plain_wide, _, _, plain_wide_ms = run(wide)
+    rec = dict(config=cfg.name, layer=0, shape=list(points.shape),
+               cin=cin, cout=cout, radius=radius, precision="bfloat16",
+               subblock=subblock, subblock_cap=n, branch=taken,
+               launches=sub_launches, plain_launches=dense_launches,
+               ms=sub_ms, plain_ms=dense_ms, default_cap=3 * n // subblock,
+               default_cap_branch=default_taken, default_cap_ms=default_ms,
+               **checks,
+               overflow=dict(radius=wide, branch=over_taken, ms=over_ms,
+                             plain_ms=plain_wide_ms,
+                             equal=all(torch.equal(a, b)
+                                       for a, b in zip(over, plain_wide))))
+    emit({"phase": "subblock", **rec})
+    if not (taken == "subblock" and over_taken == "plain"
+            and rec["overflow"]["equal"]
+            and all(v for k, v in checks.items() if k.endswith("_ok"))):
+        raise AssertionError(f"subblock failed: {rec}")
+    return rec
+
+
 def cuda_time_ms(fn, reps, warmup=1):
     import torch
 
@@ -1588,7 +1826,7 @@ def main():
     phase_ext(dev)
     os.makedirs(tk._BUILD_DIR, exist_ok=True)     # ignored by git
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
-        launches, _, served, model = phase_serve(dev, workdir)
+        launches, replies, served, model = phase_serve(dev, workdir)
         trained, train_calls, per_step, ckpts = phase_train(dev, workdir)
         phase_serve_trained(dev, ckpts[TRAIN_CONFIGS[0][0]])
         phase_eval(dev, ckpts)
@@ -1613,6 +1851,9 @@ def main():
         ring_launches, ring_calls = phase_spatial_ranks(dev, workdir)
     for k in ("counts_dense", "counts_csr", "fwd_ext_dense"):
         launches[k] = ring_launches[k]
+    with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
+        phase_serve_parallel(dev, workdir, smi, replies)
+    phase_subblock(dev)
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))
     calls.update(train_calls)

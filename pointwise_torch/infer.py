@@ -9,6 +9,13 @@ version instead (tests, no card).
   python -m pointwise_torch.infer --config s3dis_synthetic --points 1000000
   python -m pointwise_torch.infer --serve < requests.txt
   python -m pointwise_torch.infer --params weights.npz --data-dir rooms/
+  torchrun --nproc-per-node 4 -m pointwise_torch.infer --serve --dp --sp 2
+
+``--dp`` shards each chunk of tile batches over every rank; ``--sp N``
+also row-shards the resident scene over N ranks (the rest data-parallel).
+Rank r of a torchrun launch computes on ``cuda:<LOCAL_RANK>``; without a
+launcher ``--dp`` runs as one rank.  Every rank loads the scene and builds
+the same schedule; only rank 0 prints, replies and writes.
 
 Weights: ``--checkpoint-dir`` names a directory of the port's training
 checkpoints (``python -m pointwise_torch.train --checkpoint-dir``; the
@@ -28,12 +35,14 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from pointwise_torch import resolve_device
 from pointwise_torch.convert import load_segmenter, random_segmenter_params
 from pointwise_torch.data import s3dis, synthetic
 from pointwise_torch.kernels import pointwise_conv_cuda as _kernels
 from pointwise_torch.models import PointwiseSegmenter
+from pointwise_torch.parallel import launch
+from pointwise_torch.parallel.mesh import all_reduce, broadcast_text
 from pointwise_torch.streaming import stream_apply, stream_apply_layered
 from pointwise_torch.train import get_config
 from pointwise_torch.train.trainer import checkpoint_steps, load_checkpoint
@@ -169,7 +178,27 @@ def layered_apply(model):
     return apply
 
 
-def serve(args, cfg, model, requests=None, emit=None):
+def _load_request(req, cfg):
+    """(xyz, features, labels or None, path of the prediction or None) of
+    one serve request."""
+    if req.startswith("synth:"):
+        xyz, rgb, lab = big_scene(int(req.split(":", 1)[1]),
+                                  num_classes=cfg.num_classes)
+        out_path = None
+    else:
+        xyz, rgb, lab = load_scene_file(req)
+        out_path = req[: -len(".npy")] + ".pred.npy" \
+            if req.endswith(".npy") else req + ".pred.npy"
+    return xyz, scene_features(cfg, xyz, rgb), lab, out_path
+
+
+def _any_rank(flag: bool, mesh) -> bool:
+    """Whether ``flag`` holds on any rank of the mesh (a collective)."""
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    return bool(all_reduce(t, mesh.group("world"), dist.ReduceOp.MAX))
+
+
+def serve(args, cfg, model, requests=None, emit=None, mesh=None):
     """Keep-alive serving loop: warm once on a synthetic scene, then stream
     every request at the engine's steady state.
 
@@ -184,11 +213,32 @@ def serve(args, cfg, model, requests=None, emit=None):
     libraries, ``compile_s`` seconds).  A bad request gets an error reply and
     the server keeps going.  ``--profile-file`` persists the streaming length
     profiles so a restarted server replays the same schedules.
+
+    Under ``mesh`` every rank runs this loop: rank 0 reads ``requests`` and
+    broadcasts each line (``quit`` and the end of input too); every rank
+    loads the scene, and the ranks agree on a failure before the engine's
+    first collective, so a request that fails to load on any rank gets one
+    error reply and every rank keeps serving.  A failure inside the engine
+    (a card out of memory, say) may strike one rank alone while the others
+    wait in one of its collectives, so under a mesh it is raised: the
+    launcher then takes every rank down instead of leaving them out of
+    step.  Only rank 0 emits and writes (the predictions and the profile
+    file); every rank keeps its own profiles, which stay equal because
+    every rank builds the same schedules.
+
+    Returns, per request served on this rank, {"scene", "n_points",
+    "events"} (the engine's events of that request).
     """
+    lead = mesh is None or mesh.rank == 0
     requests = sys.stdin if requests is None else requests
     if emit is None:
         def emit(rec):
             print(json.dumps(rec), flush=True)
+    if not lead:
+        def emit(rec):
+            pass
+    # every rank reads the file before its first collective, so rank 0
+    # cannot have rewritten it yet
     profiles = load_profiles(args.profile_file)
     apply = layered_apply(model)
 
@@ -198,11 +248,31 @@ def serve(args, cfg, model, requests=None, emit=None):
         out = stream_apply_layered(
             apply, xyz, feats, radii=cfg.radii, tile_size=args.tile_size,
             out_dim=cfg.num_classes, tile_batch=args.tile_batch,
-            length_profiles=profiles, events=ev, device=args.device)
-        save_profiles(args.profile_file, profiles)
+            length_profiles=profiles, events=ev, device=args.device,
+            mesh=mesh, scene_axis=_scene_axis(mesh))
+        if lead:
+            save_profiles(args.profile_file, profiles)
         ev["new_programs"] = _kernels.LIBRARY["loads"] - loads
         ev["compile_s"] = _kernels.LIBRARY["seconds"] - secs
         return out, ev
+
+    def lines():
+        """The requests, on every rank."""
+        it = iter(requests)
+        while True:
+            req = None
+            if lead:
+                for line in it:
+                    req = line.strip()
+                    if req and not req.startswith("#"):
+                        break
+                else:
+                    req = None
+            if mesh is not None:
+                req = broadcast_text(req, mesh.group("world"), mesh.device)
+            if req is None or req == "quit":
+                return
+            yield req
 
     if args.warm_points > 0:
         t0 = time.time()
@@ -213,26 +283,32 @@ def serve(args, cfg, model, requests=None, emit=None):
     else:
         emit({"ready": True})
 
-    for line in requests:
-        req = line.strip()
-        if not req or req.startswith("#"):
-            continue
-        if req == "quit":
-            break
+    served = []
+    for req in lines():
+        failed = None
+        t0 = time.time()
         try:
-            t0 = time.time()
-            if req.startswith("synth:"):
-                xyz, rgb, lab = big_scene(int(req.split(":", 1)[1]),
-                                          num_classes=cfg.num_classes)
-                out_path = None
-            else:
-                xyz, rgb, lab = load_scene_file(req)
-                out_path = req[: -len(".npy")] + ".pred.npy" \
-                    if req.endswith(".npy") else req + ".pred.npy"
-            t_load = time.time() - t0
-            t0 = time.time()
-            logits, ev = run(xyz, scene_features(cfg, xyz, rgb))
-            dt = time.time() - t0
+            xyz, feats, lab, out_path = _load_request(req, cfg)
+        except Exception as e:  # keep serving on bad requests
+            failed = e
+        if mesh is not None and _any_rank(failed is not None, mesh) \
+                and failed is None:
+            failed = RuntimeError("the request failed on another rank")
+        if failed is not None:
+            emit({"scene": req, "error": repr(failed)[:200]})
+            continue
+        t_load = time.time() - t0
+        t0 = time.time()
+        try:
+            logits, ev = run(xyz, feats)
+        except Exception as e:
+            if mesh is not None:
+                raise       # the other ranks may be inside a collective
+            emit({"scene": req, "error": repr(e)[:200]})
+            continue
+        dt = time.time() - t0
+        served.append({"scene": req, "n_points": len(xyz), "events": ev})
+        try:
             pred = logits.argmax(axis=1).astype(np.int32)
             rec = {"scene": req, "n_points": len(xyz),
                    "seconds": round(dt, 3),
@@ -243,7 +319,7 @@ def serve(args, cfg, model, requests=None, emit=None):
                    "compile_s": round(float(ev["compile_s"]), 2),
                    "phases": {k: v for k, v in ev.items()
                               if k.endswith("_s") and k != "compile_s"}}
-            if out_path:
+            if out_path and lead:
                 np.save(out_path, pred)
                 rec["output"] = out_path
             if lab is not None:
@@ -253,6 +329,11 @@ def serve(args, cfg, model, requests=None, emit=None):
             emit(rec)
         except Exception as e:  # keep serving on bad requests
             emit({"scene": req, "error": repr(e)[:200]})
+    return served
+
+
+def _scene_axis(mesh):
+    return "space" if mesh is not None and mesh.space > 1 else None
 
 
 def parse_args(argv=None):
@@ -286,45 +367,62 @@ def parse_args(argv=None):
     ap.add_argument("--profile-file", default=None,
                     help="persist streaming length profiles (JSON)")
     ap.add_argument("--dp", action="store_true",
-                    help="shard tile batches over devices: not yet ported")
+                    help="shard tile batches over every rank (torchrun; one "
+                         "rank without a launcher)")
     ap.add_argument("--sp", type=int, default=1,
-                    help="row-shard the resident scene: not yet ported")
+                    help="also row-shard the device-resident scene over a "
+                         "'space' axis of this many ranks (scans beyond one "
+                         "card's memory; composes with --dp)")
     ap.add_argument("--norm", default=None, choices=["layer", "batch", "none"],
                     help="override the config's normalization — must match "
                          "the weights' training flag")
     return ap.parse_args(argv)
 
 
-def main(argv=None):
+def main(argv=None, mesh=None, requests=None, emit=None):
+    """Run the CLI.  ``mesh``: run as this rank of an existing mesh (on its
+    device) instead of building one from the launcher's environment for
+    ``--dp`` / ``--sp``; ``requests`` / ``emit``: the input and output of
+    ``--serve`` (default stdin and stdout JSONL), which returns what
+    ``serve`` returns."""
     args = parse_args(argv)
-    if args.dp or args.sp > 1:
-        raise NotImplementedError("--dp / --sp: not yet ported")
-    device = resolve_device(args.device)
+    if (mesh is not None or args.dp or args.sp > 1) and not args.layered:
+        raise ValueError("--dp / --sp shard the layered engine only (drop "
+                         "--no-layered)")
+    device, mesh = launch.resolve_rank(args.device, args.dp, args.sp, mesh,
+                                       "pointwise_torch.infer")
+    lead = mesh is None or mesh.rank == 0
     cfg = get_config(args.config)
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
     model = build_model(cfg, device, args.params,
                         checkpoint_dir=args.checkpoint_dir)
+    if mesh is not None and lead:
+        print(f"# tile batches over data:{mesh.data}"
+              + (f", scene rows over space:{mesh.space}"
+                 if mesh.space > 1 else ""), flush=True)
 
     if args.serve:
         if not args.layered:
             raise SystemExit("--serve supports only the layered engine "
                              "(drop --no-layered)")
-        return serve(args, cfg, model)
+        return serve(args, cfg, model, requests, emit, mesh)
 
     if args.data_dir:
         xyz, rgb, lab = s3dis.load_rooms(args.data_dir)[0]
     else:
         t0 = time.time()
         xyz, rgb, lab = big_scene(args.points, num_classes=cfg.num_classes)
-        print(f"# scene: {len(xyz)} pts in {time.time()-t0:.1f}s", flush=True)
+        if lead:
+            print(f"# scene: {len(xyz)} pts in {time.time()-t0:.1f}s",
+                  flush=True)
     feats = scene_features(cfg, xyz, rgb)
 
     halo = float(sum(cfg.radii))
     t0 = time.time()
     prog = lambda d, t, b: print(  # noqa: E731
         f"# tiles {d}/{t} (bucket {b}) {time.time()-t0:.1f}s", flush=True
-    ) if d % 64 == 0 or d == t else None
+    ) if lead and (d % 64 == 0 or d == t) else None
     profiles = load_profiles(args.profile_file)
     for rep in range(max(1, args.repeat)):
         t0 = time.time()
@@ -334,8 +432,9 @@ def main(argv=None):
                 tile_size=args.tile_size, out_dim=cfg.num_classes,
                 tile_batch=args.tile_batch,
                 progress=prog if rep == 0 else None,
-                length_profiles=profiles, device=device)
-            if rep == 0:
+                length_profiles=profiles, device=device, mesh=mesh,
+                scene_axis=_scene_axis(mesh))
+            if rep == 0 and lead:
                 save_profiles(args.profile_file, profiles)
         else:
             def apply_fn(pts, fts, mask):
@@ -347,10 +446,12 @@ def main(argv=None):
                 out_dim=cfg.num_classes, tile_batch=args.tile_batch,
                 progress=prog if rep == 0 else None, device=device)
         dt_rep = time.time() - t0
-        if args.repeat > 1:
+        if args.repeat > 1 and lead:
             print(f"# pass {rep}: {dt_rep:.2f}s -> "
                   f"{len(xyz)/dt_rep:.0f} pts/s", flush=True)
     dt = time.time() - t0   # with --repeat > 1: the LAST pass
+    if not lead:
+        return
     pred = logits.argmax(axis=1).astype(np.int32)
     if args.save_ply:
         from pointwise_torch.utils.ply import write_ply

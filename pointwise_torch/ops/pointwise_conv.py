@@ -18,7 +18,10 @@ their plain PyTorch versions for CPU tensors (kernels/pointwise_conv_cuda.py);
 ``impl='reference'`` runs the dense executable spec (ops/reference.py);
 ``impl='spatial[:axis[:strategy]]'`` shards the point dim of a
 self-convolution over the ``axis`` process group of ``mesh``
-(parallel/spatial.py, gather or ring).
+(parallel/spatial.py, gather or ring).  ``subblock=S`` comes before the
+impl dispatch: S small problems of gathered candidates against their own
+centers, through either impl, or the plain conv when a group overflows
+its slots (``_subblock_conv``).
 
 External counts: ``ext_counts=`` divides by counts taken over a larger
 candidate set (``pointwise_conv_counts``), which makes the op linear in the
@@ -58,6 +61,9 @@ from pointwise_torch.ops import reference as _ref
 # there), so the two walk modes serve the same problem sizes as on the TPU.
 _CSR_MIN_TILES = 8
 _CSR_TILE_POINTS = 512
+# A sub-block's candidate slots round up to the JAX op's lane width, so the
+# two ops take the same branch on the same inputs.
+_SUBBLOCK_ROUND = 128
 
 
 def csr_walk(n_candidates: int, csr: bool | None = None) -> bool:
@@ -210,6 +216,62 @@ class PointwiseConvFunction(torch.autograd.Function):
         return d_feats, d_w, d_bias, None, None, None, None, None, None
 
 
+def _subblock_conv(points, features, weights, bias, *, radius, mask, n_sub,
+                   cap, **common):
+    """Exact sub-block overlap-save self-convolution (a port of the JAX
+    op's ``_subblock_conv``).
+
+    Centers are ``n_sub`` consecutive groups of the input order; each
+    group's candidates are the valid points inside its bbox + radius,
+    gathered in input order into ``cap`` slots.  A center lies inside its
+    own group's bbox, so its neighborhood is whole whenever the group's
+    count fits the cap; otherwise the call takes the plain conv.  Exact
+    either way.  Gradients reach ``features`` through the gather (autograd
+    of advanced indexing scatter-adds the candidates' cotangents)."""
+    batched = points.ndim == 3
+    if not batched:
+        points, features = points[None], features[None]
+        mask = None if mask is None else mask[None]
+    B, N, _ = points.shape
+    S = n_sub
+    if N % S:
+        raise ValueError(f"subblock={S} must divide N={N}")
+    ns = N // S
+    if cap is None:
+        # 3x the group size covers a compact morton group and its halo at
+        # the radii this path is for; larger radii take the plain conv
+        cap = min(N, 3 * ns)
+    cap = int(min(round_up(cap, _SUBBLOCK_ROUND), N))
+    valid = (torch.ones((B, N), dtype=torch.bool, device=points.device)
+             if mask is None else mask.bool())
+    p = points.float()
+    pg, vg = p.reshape(B, S, ns, 3), valid.reshape(B, S, ns)
+    lo = torch.where(vg[..., None], pg, 1.0e9).amin(dim=2) - radius
+    hi = torch.where(vg[..., None], pg, -1.0e9).amax(dim=2) + radius
+    inb = ((p[:, None] >= lo[:, :, None]) & (p[:, None] <= hi[:, :, None])
+           ).all(dim=-1) & valid[:, None]                         # (B, S, N)
+    # a host branch on one device scalar: this syncs with the device, as
+    # the JAX op's lax.cond does not
+    if int(inb.sum(dim=-1).max()) > cap:
+        y = pointwise_conv(points, features, weights, bias, radius=radius,
+                           mask=mask, **common)
+        return y if batched else y[0]
+    # a stable sort keeps the selected candidates in input (morton) order
+    idx = torch.argsort((~inb).to(torch.int8), dim=-1,
+                        stable=True)[..., :cap]
+    sel_valid = torch.gather(inb, -1, idx)                        # (B, S, cap)
+    brow = torch.arange(B, device=points.device)[:, None, None]
+    y = pointwise_conv(
+        p[brow, idx].reshape(B * S, cap, 3),
+        features[brow, idx].reshape(B * S, cap, features.shape[-1]),
+        weights, bias, radius=radius,
+        mask=sel_valid.reshape(B * S, cap).float(),
+        centers=pg.reshape(B * S, ns, 3),
+        center_mask=vg.reshape(B * S, ns).float(), **common)
+    y = y.reshape(B, N, y.shape[-1])
+    return y if batched else y[0]
+
+
 def pointwise_conv(
     points: torch.Tensor,
     features: torch.Tensor,
@@ -254,7 +316,14 @@ def pointwise_conv(
         then computes a partial convolution, linear in the candidates, and
         needs ``bias=None`` (a bias inside each partial would be summed
         once per subset).
-      subblock, subblock_cap: not yet ported (they raise).
+      subblock: optional int > 1, exact sub-block overlap-save for small
+        radii (self-convolution only): the cloud, morton-sorted by the
+        caller, splits into this many consecutive center groups, and each
+        group convolves against only the points inside its bbox + radius,
+        gathered into ``subblock_cap`` slots (``_subblock_conv``).
+      subblock_cap: candidate slots per sub-block, rounded up to 128;
+        None = 3x the group size.  The cap picks the branch (a group that
+        overflows it sends the call to the plain conv), never the answer.
       mesh: the parallel.mesh.Mesh of a spatial impl.
 
     Returns:
@@ -286,10 +355,18 @@ def pointwise_conv(
             points, features, weights, bias, radius=radius,
             group=None if mesh is None else mesh.group(axis),
             mask_local=mask, strategy=strategy, precision=precision)
-    if subblock is not None or subblock_cap is not None:
-        raise NotImplementedError("pointwise_conv subblock: not yet ported")
     if impl not in ("auto", "reference"):
         raise ValueError(f"unknown impl: {impl!r}")
+    if subblock is not None and subblock > 1:
+        # before the impl dispatch, and impl forwarded into the recursion,
+        # so that impl='reference' checks the gather and the fallback
+        # against the executable spec
+        if centers is not None or ext_counts is not None:
+            raise ValueError("subblock supports self-convolution only")
+        return _subblock_conv(
+            points, features, weights, bias, radius=radius, mask=mask,
+            n_sub=int(subblock), cap=subblock_cap, impl=impl,
+            precision=precision, csr=csr, validate=validate)
     if validate:
         _check_coordinates(points, mask, centers, center_mask)
     if impl == "reference":

@@ -10,9 +10,11 @@ or the time is up, and raises.  It returns the ranks' results in rank
 order.  The workers below are what the port's multi-process tests and
 ``chip_smoke.py`` run; they import nothing but the port.
 
-torchrun launches the train CLI the same way on a multi-card machine
-(``torchrun --nproc-per-node N -m pointwise_torch.train --dp ...``); this
-module is for runs that need no launcher, on the CPU or on one card.
+torchrun launches the train and infer CLIs on a multi-card machine
+(``torchrun --nproc-per-node N -m pointwise_torch.train --dp ...``,
+``... -m pointwise_torch.infer --serve --dp``); ``rank_device`` and
+``launch_mesh`` place such a rank.  ``spawn`` is for runs that need no
+launcher, on the CPU or on one card.
 """
 
 from __future__ import annotations
@@ -27,7 +29,62 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from pointwise_torch import resolve_device
-from pointwise_torch.parallel.mesh import make_mesh, shard_batch
+from pointwise_torch.parallel.mesh import (
+    default_backend,
+    init_distributed,
+    make_mesh,
+    shard_batch,
+)
+
+
+def rank_device(name: str) -> torch.device:
+    """A launched rank's device: ``cuda:<LOCAL_RANK>`` for cuda (refusing
+    more local ranks than cards), else the CPU."""
+    dev = resolve_device(name)
+    if dev.type != "cuda":
+        return dev
+    local = int(os.environ.get("LOCAL_RANK", "0"))
+    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
+    cards = torch.cuda.device_count()
+    if ranks > cards:
+        raise RuntimeError(f"{ranks} local ranks but {cards} card(s): each "
+                           "rank needs a card of its own")
+    torch.cuda.set_device(local)
+    return torch.device("cuda", local)
+
+
+def launch_mesh(sp: int, device, prog: str):
+    """The (data x ``sp``) mesh of a torchrun launch of ``python -m prog``;
+    without a launcher, a one-rank group (``--dp`` alone) or, for ``sp >
+    1``, an error that names the torchrun command."""
+    backend = default_backend(device)
+    if not init_distributed(backend, device):
+        if sp > 1:
+            raise RuntimeError(
+                f"--sp {sp} needs {sp} ranks or more: launch with "
+                f"torchrun --nproc-per-node {sp} -m {prog}")
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return make_mesh(space=max(sp, 1), device=device, backend=backend)
+
+
+def resolve_rank(device_name: str, dp: bool, sp: int, mesh, prog: str):
+    """(device, mesh) of one rank of a CLI run as ``python -m prog``: a
+    given ``mesh`` (checked against ``device_name`` and ``sp``) on its
+    device; else, for ``dp`` or ``sp > 1``, the torchrun launch's rank
+    (``rank_device``, ``launch_mesh``); else ``device_name`` alone and no
+    mesh."""
+    if mesh is not None:
+        if mesh.device.type != resolve_device(device_name).type:
+            raise ValueError(f"--device {device_name} but the mesh runs on "
+                             f"{mesh.device}")
+        if mesh.space != max(sp, 1):
+            raise ValueError(f"--sp {sp} but the mesh has space={mesh.space}")
+        return mesh.device, mesh
+    if dp or sp > 1:
+        device = rank_device(device_name)
+        return device, launch_mesh(sp, device, prog)
+    return resolve_device(device_name), None
 
 
 def _entry(rank, world, store_path, fn, kwargs, out_path, shape, backend,
@@ -229,3 +286,57 @@ def cli_worker(mesh, *, argv: list) -> dict:
     return {"metrics": metrics, "step": trainer.step_count,
             "state": {k: v.detach().cpu()
                       for k, v in trainer.model.state_dict().items()}}
+
+
+def serve_worker(mesh, *, argv: list, requests: list) -> dict:
+    """``python -m pointwise_torch.infer`` as this rank of the mesh, with
+    ``requests`` as its input (read by rank 0 only).  Returns what this rank
+    emitted (rank 0: the replies), printed and launched (counts zeroed just
+    before, read just after), and per served request the scene's points
+    and the bytes of it this rank held on its device (``scenes``)."""
+    import contextlib
+    import io
+
+    from pointwise_torch import infer
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    replies, printed = [], io.StringIO()
+    tk.reset_launches()
+    with contextlib.redirect_stdout(printed):
+        served = infer.main(argv, mesh=mesh, requests=requests,
+                            emit=replies.append)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return {"replies": replies, "stdout": printed.getvalue(),
+            "launches": dict(tk.LAUNCHES),
+            "scenes": [{"points": s["n_points"],
+                        "resident_bytes": int(s["events"]["resident_bytes"])}
+                       for s in served],
+            "coords": mesh.coords}
+
+
+def stream_worker(mesh, *, config: str, scenes: list, precision="float32",
+                  **kw) -> dict:
+    """``infer.build_model(config)`` (the config seed's weights) streamed
+    over each (xyz, features) of ``scenes`` by ``stream_apply_layered``
+    under the mesh, the scene's rows sharded over "space" when the mesh has
+    that axis; ``kw`` goes to the engine.  Returns the outputs, the length
+    profiles the calls filled and, per scene, its points and the bytes of
+    it this rank held on its device (``scenes``)."""
+    from pointwise_torch import infer
+    from pointwise_torch.streaming import stream_apply_layered
+    from pointwise_torch.train import get_config
+
+    cfg = get_config(config)
+    model = infer.build_model(cfg, mesh.device, precision=precision)
+    profiles, outs, held = {}, [], []
+    for xyz, feats in scenes:
+        ev = {}
+        outs.append(stream_apply_layered(
+            infer.layered_apply(model), xyz, feats, radii=cfg.radii,
+            out_dim=cfg.num_classes, length_profiles=profiles, events=ev,
+            mesh=mesh, scene_axis="space" if mesh.space > 1 else None, **kw))
+        held.append({"points": len(xyz),
+                     "resident_bytes": int(ev["resident_bytes"])})
+    return {"outs": outs, "profiles": profiles, "scenes": held,
+            "coords": mesh.coords}

@@ -230,3 +230,20 @@ def broadcast_(tensors, group) -> None:
         dist.broadcast(x, src=0, group=group)
         with torch.no_grad():
             t.copy_(x.to(t.device))
+
+
+def broadcast_text(text: str | None, group, device) -> str | None:
+    """Global rank 0's ``text`` (a string or None) on every member of
+    ``group``; the other members' ``text`` is ignored.  ``device`` is where
+    the bytes are staged (the members' device)."""
+    data = (text or "").encode()
+    n = torch.tensor([-1 if text is None else len(data)], dtype=torch.int64,
+                     device=device)
+    broadcast_([n], group)
+    n = int(n)
+    if n <= 0:
+        return None if n < 0 else ""
+    buf = torch.tensor(list(data) if len(data) == n else [0] * n,
+                       dtype=torch.uint8, device=device)
+    broadcast_([buf], group)
+    return bytes(buf.cpu().tolist()).decode()

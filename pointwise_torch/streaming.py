@@ -1,7 +1,9 @@
 """Exact streaming inference for scans too large for one padded batch.
 
-A port of pointwise_tpu/streaming.py (single device).  The engine is exact
-overlap-save convolution:
+A port of pointwise_tpu/streaming.py; under a parallel.mesh.Mesh the tile
+batches shard over its data axis and the resident scene's rows over its
+space axis (stream_apply_layered).  The engine is exact overlap-save
+convolution:
 
   * the scene is partitioned into spatial tiles (native grid-hash index,
     pointwise_torch/native);
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import collections
 import concurrent.futures
+import functools
 import queue as queue_mod
 import threading
 import time
@@ -27,10 +30,12 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pointwise_torch import resolve_device
 from pointwise_torch.kernels.pointwise_conv_cuda import SENTINEL
 from pointwise_torch.native import GridIndex, morton_codes
+from pointwise_torch.parallel.mesh import all_gather_cat, all_reduce
 from pointwise_torch.utils.spatial import morton_code
 
 DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -44,6 +49,46 @@ def _stage(sx, sf, cand, centers, n0):
     pts = torch.where(live[..., None], sx[cand] - centers[:, None, :],
                       SENTINEL)
     fts = torch.where(live[..., None], sf[cand], 0.0)
+    return pts, fts
+
+
+def _resident_scene(xyz, features, dev, mesh, scene_axis):
+    """The morton-sorted scene's rows that live on this rank's device:
+    (xyz, features, index of the first row).  With ``scene_axis`` the scene
+    is padded with sentinel rows (zero features; no candidate index points
+    there) to a multiple of the axis size, and the rank at index s keeps
+    rows [s*L, (s+1)*L); otherwise it keeps every row."""
+    lo, hi = 0, len(xyz)
+    if scene_axis is not None:
+        n = dist.get_world_size(mesh.group(scene_axis))
+        rows = -(-len(xyz) // n)
+        pad = rows * n - len(xyz)
+        xyz = np.concatenate([xyz, np.full((pad, 3), SENTINEL, np.float32)])
+        features = np.concatenate(
+            [features, np.zeros((pad, features.shape[1]), np.float32)])
+        lo = mesh.index(scene_axis) * rows
+        hi = lo + rows
+    return (torch.from_numpy(xyz[lo:hi]).to(dev),
+            torch.from_numpy(features[lo:hi]).to(dev), lo)
+
+
+def _stage_owned(first, group, sx, sf, cand, centers, n0):
+    """``_stage`` over a row-sharded scene (the owner-gather): each member
+    of ``group`` gathers the candidate rows it holds (``sx``/``sf`` are
+    global rows ``first ..``) and zeros elsewhere, and one SUM all-reduce
+    over the group assembles the tile.  Every index has exactly one owner,
+    so each staged value is its owner's value plus zeros: the same bits as
+    ``_stage`` on the whole scene, a negative zero aside (-0.0 + 0.0 is
+    +0.0)."""
+    sel = cand.long() - first
+    owned = ((sel >= 0) & (sel < sx.shape[0]))[..., None]
+    sel = sel.clamp(0, sx.shape[0] - 1)
+    rows = all_reduce(torch.where(owned, torch.cat([sx[sel], sf[sel]], -1),
+                                  0.0), group)
+    live = (torch.arange(cand.shape[1], device=cand.device)[None, :]
+            < n0[:, None])[..., None]
+    pts = torch.where(live, rows[..., :3] - centers[:, None, :], SENTINEL)
+    fts = torch.where(live, rows[..., 3:], 0.0)
     return pts, fts
 
 
@@ -218,7 +263,7 @@ def stream_apply_layered(
     progress: Callable | None = None,
     length_profiles: dict | None = None,
     events: dict | None = None,
-    device: str | torch.device = "cuda",
+    device: str | torch.device | None = None,
     mesh=None,
     scene_axis: str | None = None,
 ) -> np.ndarray:
@@ -246,14 +291,36 @@ def stream_apply_layered(
 
     ``events``: optional dict the engine fills with phase wall-times
     (presort_s, build_s, pack_s, wait_packer_s, dispatch_s, flush_fetch_s,
-    flush_scatter_s, total_s) and n_jobs.
+    flush_scatter_s, total_s), n_jobs and resident_bytes (the bytes of the
+    scene this rank holds on its device).
 
-    ``mesh`` / ``scene_axis`` (multi-device) are not yet ported.
+    ``device``: where the tiles run (default the card); under a mesh, the
+    mesh's device.
+
+    ``mesh`` (a parallel.mesh.Mesh; every rank of it calls this with the
+    same scene and arguments): each chunk of ``tbs`` tiles, ``tbs`` rounded
+    up to a multiple of the mesh's data size n, is split over its "data"
+    axis; the rank at data index d stages and applies rows
+    [d*tbs/n, (d+1)*tbs/n) and the logits come back over the "data" group,
+    so every rank returns the whole output.  Every rank builds the same
+    schedule from the same scene.  ``scene_axis`` (requires ``mesh``) also
+    row-shards the resident
+    scene over that axis, the only O(N_scene) device allocation (36 B per
+    point at 6 features): each rank keeps its block of the morton-sorted
+    scene and staging is the owner-gather of ``_stage_owned``; members of
+    one scene-axis group compute the same rows.  Every collective runs on
+    this (the dispatch) thread in chunk order, never on the packer's.
     """
-    if mesh is not None or scene_axis is not None:
-        raise NotImplementedError(
-            "stream_apply_layered mesh/scene_axis: not yet ported")
-    dev = resolve_device(device)
+    if scene_axis is not None and mesh is None:
+        raise ValueError("scene_axis requires a mesh")
+    if mesh is None:
+        dev = resolve_device(device)
+        n_data, d_index = 1, 0
+    else:
+        dev = mesh.device
+        if device is not None and resolve_device(device).type != dev.type:
+            raise ValueError(f"device {device} but the mesh runs on {dev}")
+        n_data, d_index = mesh.data, mesh.index("data")
     ev_t = collections.defaultdict(float)
     t_start = time.perf_counter()
 
@@ -301,23 +368,31 @@ def stream_apply_layered(
     # so a tile that runs one per chunk anyway (tbs == 1 at its bucket) gets
     # its OWN padded schedule (tuple key) instead of padding up to the
     # bucket's maxima; small tiles keep the bucket key (int) so chunks stay
-    # full.
+    # full.  Not under a data axis of more than one rank: it rounds every
+    # chunk up to n_data tiles, which would leave per-schedule chunks
+    # mostly empty where bucket groups pack them full.
     groups: dict = {}
     for job in jobs:
         counts = job[3]
         b = _bucket_for(int(counts[0]), buckets)
         forced_single = (8192 * tile_batch) // b <= 1
-        key = tuple(pad_len(int(c)) for c in counts) if forced_single else b
+        key = (tuple(pad_len(int(c)) for c in counts)
+               if (forced_single and n_data == 1) else b)
         groups.setdefault(key, []).append(job)
     _coalesce(groups)
 
-    scene_xyz = torch.from_numpy(xyz).to(dev)
-    scene_fts = torch.from_numpy(features).to(dev)
+    scene_xyz, scene_fts, first = _resident_scene(xyz, features, dev, mesh,
+                                                  scene_axis)
+    stage = (_stage if scene_axis is None else functools.partial(
+        _stage_owned, first, mesh.group(scene_axis)))
+    ev_t["resident_bytes"] = sum(t.numel() * t.element_size()
+                                 for t in (scene_xyz, scene_fts))
 
     meta = {}
     for b in sorted(groups, key=_gorder):
         p0 = b if isinstance(b, int) else b[0]
         tbs = max(1, min(tile_batch, (8192 * tile_batch) // p0))
+        tbs = -(-tbs // n_data) * n_data       # divisible by the data axis
         if isinstance(b, int):
             gmax = np.max(np.stack([j[3] for j in groups[b]]), axis=0)
             lengths = tuple(pad_len(int(m)) for m in gmax)
@@ -362,18 +437,20 @@ def stream_apply_layered(
                 js = groups[b]
                 tbs, lengths = meta[b]
                 p0, p_last = lengths[0], lengths[-1]
+                rows = tbs // n_data          # this rank's rows of a chunk
                 for s in range(0, len(js), tbs):
                     t0 = time.perf_counter()
                     chunk = js[s : s + tbs]
-                    cand_h = np.zeros((tbs, p0), np.int32)
-                    ctr_h = np.zeros((tbs, 3), np.float32)
-                    cnt = np.zeros((tbs, L + 1), np.int32)
-                    sels = [np.zeros((tbs, lengths[l + 1]), np.int32)
+                    mine = chunk[d_index * rows:(d_index + 1) * rows]
+                    cand_h = np.zeros((rows, p0), np.int32)
+                    ctr_h = np.zeros((rows, 3), np.float32)
+                    cnt = np.zeros((rows, L + 1), np.int32)
+                    sels = [np.zeros((rows, lengths[l + 1]), np.int32)
                             for l in range(L)]
-                    skips = [np.zeros((tbs, p_last), np.int32)
+                    skips = [np.zeros((rows, p_last), np.int32)
                              for l in range(L)]
                     for t, (center, _, cand, counts, sel, skip) in enumerate(
-                            chunk):
+                            mine):
                         cand_h[t, : len(cand)] = cand
                         ctr_h[t] = center           # translation-invariant
                         cnt[t] = counts
@@ -397,6 +474,8 @@ def stream_apply_layered(
         nonlocal done
         t0 = time.perf_counter()
         logits_d, interiors, b = pending.popleft()
+        if n_data > 1:              # every rank's rows, in data-index order
+            logits_d = all_gather_cat(logits_d, mesh.group("data"), 0)
         logits = logits_d.float().cpu().numpy()     # device->host barrier
         ev_t["flush_fetch_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -426,8 +505,8 @@ def stream_apply_layered(
                 raise item
             b, lengths, cand_h, ctr_h, cnt, sels, skips, interiors = item
             t0 = time.perf_counter()
-            pts_d, fts_d = _stage(scene_xyz, scene_fts, put(cand_h),
-                                  put(ctr_h), put(cnt[:, 0]))
+            pts_d, fts_d = stage(scene_xyz, scene_fts, put(cand_h),
+                                 put(ctr_h), put(cnt[:, 0]))
             logits_d = apply_fn(pts_d, fts_d, put(cnt),
                                 tuple(put(x) for x in sels),
                                 tuple(put(x) for x in skips), lengths)

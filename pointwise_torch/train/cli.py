@@ -40,13 +40,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import itertools
-import os
 import time
 
 import torch
-import torch.distributed as dist
 
-from pointwise_torch import resolve_device
 from pointwise_torch.data import (augment, modelnet, pipeline, s3dis,
                                   scenenn, shapenetpart)
 from pointwise_torch.models import (
@@ -56,8 +53,7 @@ from pointwise_torch.models import (
     classification_loss,
     segmentation_loss,
 )
-from pointwise_torch.parallel.mesh import (default_backend, init_distributed,
-                                           make_mesh)
+from pointwise_torch.parallel import launch
 from pointwise_torch.parallel.spmd import (cls_spmd_loss_fn,
                                            partseg_spmd_loss_fn,
                                            seg_spmd_loss_fn)
@@ -326,36 +322,6 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def _rank_device(name: str) -> torch.device:
-    """This rank's device: ``cuda:<LOCAL_RANK>`` for cuda (refusing more
-    local ranks than cards), else the CPU."""
-    dev = resolve_device(name)
-    if dev.type != "cuda":
-        return dev
-    local = int(os.environ.get("LOCAL_RANK", "0"))
-    ranks = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
-    cards = torch.cuda.device_count()
-    if ranks > cards:
-        raise RuntimeError(f"{ranks} local ranks but {cards} card(s): each "
-                           "rank needs a card of its own")
-    torch.cuda.set_device(local)
-    return torch.device("cuda", local)
-
-
-def _launch_mesh(args, device):
-    """The mesh of a torchrun launch (a one-rank group for --dp without
-    one)."""
-    backend = default_backend(device)
-    if not init_distributed(backend, device):
-        if args.sp > 1:
-            raise RuntimeError(
-                f"--sp {args.sp} needs {args.sp} ranks or more: launch with "
-                f"torchrun --nproc-per-node {args.sp} -m pointwise_torch.train")
-        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    return make_mesh(space=max(args.sp, 1), device=device, backend=backend)
-
-
 def main(argv=None, on_step=None, mesh=None) -> Trainer:
     """Run the CLI; returns the trainer.  ``on_step(step, metrics)`` runs
     after every step (chip_smoke.py times steps with it).  ``mesh``: run
@@ -378,19 +344,8 @@ def main(argv=None, on_step=None, mesh=None) -> Trainer:
         cfg = dataclasses.replace(cfg, seed=args.seed)
     if args.checkpoint_dir:
         cfg = dataclasses.replace(cfg, checkpoint_dir=args.checkpoint_dir)
-    if mesh is not None:
-        device = mesh.device
-        if device.type != resolve_device(args.device).type:
-            raise ValueError(f"--device {args.device} but the mesh runs on "
-                             f"{device}")
-        if args.sp > 1 and mesh.space != args.sp:
-            raise ValueError(f"--sp {args.sp} but the mesh has space="
-                             f"{mesh.space}")
-    elif args.dp or args.sp > 1:
-        device = _rank_device(args.device)
-        mesh = _launch_mesh(args, device)
-    else:
-        device = resolve_device(args.device)
+    device, mesh = launch.resolve_rank(args.device, args.dp, args.sp, mesh,
+                                       "pointwise_torch.train")
     if mesh is None or mesh.rank == 0:
         print(f"# config={args.config} device={device}", flush=True)
         if mesh is not None:

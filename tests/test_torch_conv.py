@@ -195,13 +195,16 @@ def test_adjacency_matches_jax(seed):
 
 
 def test_not_yet_ported_options_raise():
-    # subblock is still to port; ext_counts, pointwise_conv_counts and the
-    # spatial impls are ported (tests/test_torch_counts.py,
-    # test_torch_spatial.py) and refuse what the JAX op refuses
+    # every option is ported (subblock: tests/test_torch_subblock.py;
+    # ext_counts, pointwise_conv_counts and the spatial impls:
+    # tests/test_torch_counts.py, test_torch_spatial.py); each refuses what
+    # the JAX op refuses
     p = {k: torch.from_numpy(v) for k, v in make_problem(5).items()}
     args = (p["points"], p["features"], p["weights"])
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        pointwise_conv(*args, radius=0.5, subblock=2)
+    with pytest.raises(ValueError, match="self-convolution only"):
+        pointwise_conv(*args, radius=0.5, subblock=2, centers=p["points"])
+    with pytest.raises(ValueError, match="must divide"):
+        pointwise_conv(*args, radius=0.5, subblock=5)
     with pytest.raises(ValueError, match="partial convolution"):
         pointwise_conv(*args, p["bias"], radius=0.5,
                        ext_counts=torch.ones(2, 96, 27))

@@ -127,15 +127,25 @@ def test_cuda_request_without_card_fails():
         main(["--config", "seg_tiny_stream", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("extra", [["--dp"], ["--sp", "2"],
+@pytest.mark.parametrize("extra", [["--no-layered", "--dp"], ["--sp", "2"],
                                    ["--checkpoint-dir", "x"]])
 def test_not_yet_ported_flags_fail(extra, tmp_path):
+    # what the port refuses: the plain engine under a mesh (the JAX engine's
+    # stream_apply takes none), --sp without a launcher (the torchrun
+    # command is named; no process group is left behind) and an orbax
+    # checkpoint of the JAX package (numbered step directory)
+    import torch.distributed as dist
+
+    want = {"--no-layered": (ValueError, "layered engine only"),
+            "--sp": (RuntimeError, "torchrun --nproc-per-node 2"),
+            "--checkpoint-dir": (NotImplementedError, "not yet ported")}
+    err, match = want[extra[0]]
     if extra[0] == "--checkpoint-dir":
-        # an orbax checkpoint of the JAX package (numbered step directory)
         (tmp_path / "x" / "3").mkdir(parents=True)
         extra = [extra[0], os.fspath(tmp_path / "x")]
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(err, match=match):
         main(["--config", "seg_tiny_stream", "--device", "cpu"] + extra)
+    assert not dist.is_initialized()
 
 
 def test_serves_a_trained_checkpoint(tmp_path):

@@ -31,7 +31,6 @@ from pointwise_tpu.train import trainer as jax_trainer
 from pointwise_tpu.train.configs import OptimizerConfig as JaxOpt
 from pointwise_torch.convert import classifier_state_dict, segmenter_state_dict
 from pointwise_torch.parallel import init_distributed, launch
-from pointwise_torch.train import cli
 from pointwise_torch.train.configs import OptimizerConfig
 
 RUN_LIMIT = 240       # seconds for one spawned run, start to end
@@ -220,7 +219,7 @@ def test_launch_rules_without_a_launcher(monkeypatch):
     monkeypatch.setenv("LOCAL_RANK", "1")
     monkeypatch.setenv("LOCAL_WORLD_SIZE", "2")
     with pytest.raises(RuntimeError, match="needs a card of its own"):
-        cli._rank_device("cuda")
+        launch.rank_device("cuda")
 
 
 def test_mesh_defaults_to_the_card(monkeypatch):

@@ -169,8 +169,8 @@ def test_bucket_for():
 
 def test_device_and_mesh_requests():
     xyz = np.zeros((4, 3), np.float32)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        streaming.stream_apply_layered(None, xyz, xyz, mesh=object(),
+    with pytest.raises(ValueError, match="requires a mesh"):
+        streaming.stream_apply_layered(None, xyz, xyz, scene_axis="space",
                                        device="cpu", **KW)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
