@@ -39,9 +39,10 @@ Phases, each printing one JSON line:
            zeroed just before each run, read just after); steps 3-20 run
            back to back with one sync at each end of the window (ms/step,
            trained points/s, as the JAX bench times steps), steps 21-22
-           under torch.profiler (device ms per step; idle share = 1 -
-           device ms / untraced ms); a second run of the same seed, stopped
-           at step 11 and resumed, must end on the same bits; then infer
+           under torch.profiler (device ms per step, the union of the
+           card's busy intervals, ``runtime.device_seconds``; idle share =
+           1 - device ms / untraced ms); a second run of the same seed,
+           stopped at step 11 and resumed, must end on the same bits; then infer
            serves one 200K request from the segmentation checkpoint;
   eval     python -m pointwise_torch.eval's flows on the train checkpoints:
            --votes 12 of modelnet40_synthetic, block voting and --streaming
@@ -61,6 +62,16 @@ Phases, each printing one JSON line:
            compares with the LayerNorm run's: running averages moved and
            finite, resume bits; block voting of its checkpoint on the
            running averages;
+  remat    remat=False and then remat=True through the train CLI's
+           function at full width, 6 steps each (timed as the train phase:
+           window 3-4, traced 5-6): s3dis_synthetic_local (CSR walk) with
+           LayerNorm and with --norm batch, shapenetpart and
+           modelnet40_synthetic (dense walk); losses, grad norms, every
+           metric and the final state_dict (running averages included)
+           bit-identical, the forward's walk and product launched once
+           more per block and step (the recompute), dW's and dX's as
+           often; each run's peak device memory above what was allocated
+           before it, ms per step and device ms per kernel family;
   trace    one more 200K scene under torch.profiler: the device's busy
            and idle share of the request, its device ms per kernel family
            and its costliest device ops (the train phase's traced steps
@@ -85,7 +96,11 @@ Phases, each printing one JSON line:
            single-device trainer's on the same batch (2e-3, the JAX
            package's bf16 SPMD pin), grad norm > 0, its launches (counts
            zeroed just before, read just after, summed over the ranks) and
-           ms/step.  No rate of (b) is a multi-card number;
+           ms/step; and the segmentation ring once more with remat=True:
+           every step's metrics and the final state bit-identical to the
+           ring without remat, its counts pre-pass and partials launched
+           twice as often (recomputed in the backward).  No rate of (b) is
+           a multi-card number;
   serve_parallel  infer's --serve under a mesh: ranks spawned on cuda:0
            over gloo run ``launch.serve_worker`` (infer.main) with the
            serve phase's model and weights: --dp on 2 ranks (data 2), --sp
@@ -114,6 +129,12 @@ Phases, each printing one JSON line:
            and radius 2.0 (larger than the block), which must take the
            plain conv; the CUDA-event ms of the forward and backward of
            each;
+  tools    the profiler tools of pointwise_torch/tools in-process:
+           attribute_train_step --config seg (6 untraced and 6 traced
+           steps; op total <= device ms <= untraced ms), attribute_streaming
+           at 200K points (device seconds > 0), sweep_seg_conv --quick and
+           anchor_sweep at cls_synthetic_hard, 2 seeds x 20 steps (the
+           path, not the accuracy);
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -130,8 +151,9 @@ Phases, each printing one JSON line:
            (``library_ms``; cuBLAS, never called by the port).  Then the
            same rows at ShapeNetPart's widest-radius layer (tagged
            ``path``), outside the kernels line.
-Then the ``kernels`` line (thirteen kernels), the nvidia-smi line and,
-last, the result line.
+After each phase a ``clock`` line gives its wall seconds.  Then the
+``kernels`` line (thirteen kernels), the nvidia-smi line and, last, the
+result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.
 """
@@ -179,6 +201,14 @@ TRAIN_STEPS = 22
 PARTSEG_STEPS = 20
 TRAIN_CONFIGS = (("s3dis_synthetic_local", "csr"),
                  ("modelnet40_synthetic", "dense"))
+# each remat run and the run without remat it is held to: steps 3-4 timed,
+# 5-6 traced (timed_train)
+REMAT_STEPS = 6
+# (configuration, --norm, the walk its forwards take) of the remat phase
+REMAT_RUNS = (("s3dis_synthetic_local", "layer", "csr"),
+              ("s3dis_synthetic_local", "batch", "csr"),
+              ("shapenetpart", "layer", "dense"),
+              ("modelnet40_synthetic", "layer", "dense"))
 
 
 def emit(rec):
@@ -599,86 +629,31 @@ def dense_calls(dev, model, batch=4):
     return recorder.calls
 
 
-def device_busy_s(prof):
-    """(seconds of device time in a torch.profiler run, 0 if it saw none;
-    the device ops; their self device time in us, as a function)."""
-    import torch
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    ops = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    return sum(dev_us(e) for e in ops) / 1e6, ops, dev_us
-
-
-# device-time families of the traces: (name, substring of the kernel name)
-KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "FwdProduct"),
-                   ("dw_walk", "DwMeans"), ("dw_product", "pw_dw_product"),
-                   ("dw_reduce", "pw_dw_reduce"), ("dx_walk", "DxSums"),
-                   ("dx_product", "DxProduct"),
-                   ("counts", "pw_counts_kernel"))
-
-
-def kernel_ms(ops, dev_us, per=1):
-    """Device ms of each kernel family in a trace's ops, over ``per``
-    (steps or requests); a walk family includes its feature-pack kernel
-    (and dX's its scale kernel), dW's product its g-rounding kernel."""
-    return {fam: sum(dev_us(e) for e in ops if key in e.key) / 1e3 / per
-            for fam, key in KERNEL_FAMILIES}
-
-
-def timed_train(dev, argv, steps):
-    """``cli.main(argv + ["--steps", steps])`` timed as the JAX bench times
-    a run (bench.py: steps back to back, one sync at the end): steps 3 ..
-    steps-2 run with no host sync of the script's own, the card is
-    synchronised only at the two ends of that window, and the last two
-    steps run under torch.profiler after it.  Returns (trainer, per-step
-    metrics as floats, timing): ms per untraced step, the device ms per
-    step of the traced steps, the device idle share 1 - device / untraced
+def timed_train(dev, argv, steps, remat=False):
+    """``cli.main(argv + ["--steps", steps], remat=remat)`` timed as the JAX
+    bench times a run (bench.py: steps back to back, one sync at the end):
+    steps 3 .. steps-2 run with no host sync of the script's own, the card
+    is synchronised only at the two ends of that window, and the last two
+    steps run under torch.profiler after it (``runtime.StepWindow``).
+    Returns (trainer, per-step metrics as floats, timing): ms per untraced
+    step, the device ms per step of the traced steps (the union of the
+    card's busy intervals), the device idle share 1 - device / untraced
     ms, and the traced steps' device ms per kernel family."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     from pointwise_torch.train import cli
+    from pointwise_torch.utils.runtime import StepWindow, sync
 
-    first, last = 2, steps - 2          # the window: steps first+1 .. last
-    marks, metrics, prof = {}, [], []
+    window = StepWindow(dev, first=2, last=steps - 2, end=steps)
+    metrics = []
 
     def on_step(step, m):
         metrics.append(m)               # device scalars: read after the run
-        if step in (first, last, steps):
-            torch.cuda.synchronize()
-            marks[step] = time.perf_counter()
-        if step == last:
-            prof.append(profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA]))
-            prof[0].__enter__()
-        elif step == steps:
-            prof[0].__exit__(None, None, None)
+        window(step)
 
-    trainer = cli.main(argv + ["--steps", str(steps)], on_step=on_step)
-    torch.cuda.synchronize()
+    trainer = cli.main(argv + ["--steps", str(steps)], on_step=on_step,
+                       remat=remat)
+    sync(dev)
     metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
-    step_ms = (marks[last] - marks[first]) / (last - first) * 1e3
-    busy, ops, dev_us = device_busy_s(prof[0])
-    timing = dict(steps=steps, timed_steps=[first + 1, last],
-                  ms_per_step=step_ms,
-                  traced_steps=[last + 1, steps],
-                  traced_ms_per_step=(marks[steps] - marks[last])
-                  / (steps - last) * 1e3)
-    if busy <= 0:
-        timing["device_ms_per_step"] = "not measured"
-    else:
-        dev_ms = busy * 1e3 / (steps - last)
-        timing.update(
-            device_ms_per_step=dev_ms,
-            device_idle_share=1.0 - dev_ms / step_ms,
-            kernel_ms_per_step=kernel_ms(ops, dev_us, per=steps - last),
-            top=[{"op": e.key[:80], "ms": dev_us(e) / 1e3, "calls": e.count}
-                 for e in sorted(ops, key=dev_us, reverse=True)[:6]])
-    return trainer, metrics, timing
+    return trainer, metrics, dict(steps=steps, **window.summary())
 
 
 def same_state(a, b):
@@ -688,6 +663,20 @@ def same_state(a, b):
     sa, sb = a.state_dict(), b.state_dict()
     return sorted(sa) == sorted(sb) and all(torch.equal(sa[k], sb[k])
                                             for k in sa)
+
+
+def state_digest(model):
+    """sha256 of a model's state_dict (names and bytes, in name order)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for k, v in sorted(model.state_dict().items()):
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().view(-1).view(
+            torch.uint8).numpy().tobytes())
+    return h.hexdigest()
 
 
 def resumed_bits_equal(dev, argv, steps, trainer, workdir):
@@ -889,6 +878,111 @@ def phase_batchnorm(dev, workdir, steps=TRAIN_STEPS):
         raise AssertionError(f"BatchNorm block voting failed: {m}")
 
 
+def phase_remat(dev, runs=REMAT_RUNS, steps=REMAT_STEPS):
+    """Each of ``runs`` through the train CLI's function at full width,
+    ``steps`` steps with remat=False and then with remat=True (timed_train):
+    the losses, grad norms, every other metric and the final state_dict
+    (parameters and BatchNorm running averages) must hold the same bits;
+    with remat every block's forward kernels launch a second time inside
+    the backward, dW's and dX's as often as without.  Per run: the peak
+    device memory above what was allocated before it
+    (``max_memory_allocated`` after ``reset_peak_memory_stats``), ms per
+    untraced step, device ms per step and per kernel family."""
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+    from pointwise_torch.train import get_config
+
+    summaries = []
+    for config, norm, walk in runs:
+        argv = ["--config", config, "--norm", norm, "--device", dev.type]
+        got = {}
+        for remat in (False, True):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            tk.reset_launches()
+            trainer, metrics, timing = timed_train(dev, argv, steps, remat)
+            got[remat] = dict(
+                trainer=trainer, metrics=metrics,
+                launches={k: v for k, v in tk.LAUNCHES.items() if v},
+                peak_bytes=torch.cuda.max_memory_allocated() - base,
+                **{k: timing.get(k) for k in (
+                    "ms_per_step", "device_ms_per_step", "device_idle_share",
+                    "kernel_ms_per_step")})
+        plain, remat = got[False], got[True]
+        blocks = len(get_config(config).channels)
+        fwd = f"fwd_{walk}"
+        rec = dict(config=config, norm=norm, walk=walk, steps=steps,
+                   **{f"{k}{tag}": r[k] for tag, r in (("", plain),
+                                                       ("_remat", remat))
+                      for k in ("launches", "peak_bytes", "ms_per_step",
+                                "device_ms_per_step", "device_idle_share",
+                                "kernel_ms_per_step")},
+                   losses=[m["loss"] for m in plain["metrics"]],
+                   metrics_equal=plain["metrics"] == remat["metrics"],
+                   state_equal=same_state(plain["trainer"].model,
+                                          remat["trainer"].model))
+        emit({"phase": "remat", **rec})
+        pl, rl = plain["launches"], remat["launches"]
+        if not (rec["metrics_equal"] and rec["state_equal"]
+                and len(plain["metrics"]) == steps
+                and all(math.isfinite(m["loss"]) for m in plain["metrics"])
+                and rl.get(fwd, 0) - pl.get(fwd, 0) == blocks * steps
+                and rl.get("fwd_product", 0) - pl.get("fwd_product", 0)
+                == blocks * steps
+                and all(rl.get(k) == pl.get(k) > 0 for k in (
+                    f"dw_{walk}", f"dx_{walk}", "dw_product",
+                    "dx_product"))):
+            raise AssertionError(f"remat != no remat: {rec}")
+        summaries.append(rec)
+    return summaries
+
+
+def phase_tools(dev):
+    """The profiler tools on the card, in this process (their records
+    re-emitted here): attribute_train_step at the segmentation step (op
+    total <= device ms <= untraced ms), attribute_streaming at 200K points
+    (device seconds > 0), sweep_seg_conv --quick and anchor_sweep at 2
+    seeds x 20 steps of cls_synthetic_hard (the path, not the accuracy)."""
+    import contextlib
+    import io
+
+    from pointwise_torch.tools import (anchor_sweep, attribute_streaming,
+                                       attribute_train_step, sweep_seg_conv)
+
+    def quiet(main, argv):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return main(argv + ["--device", dev.type])
+
+    step = quiet(attribute_train_step.main, ["--config", "seg", "--steps",
+                                             "6"])
+    emit({"phase": "tools", "tool": "attribute_train_step", **step})
+    if not (isinstance(step["device_ms_per_step"], float)
+            and step["op_ms_per_step"] <= step["device_ms_per_step"]
+            <= step["ms_per_step"]):
+        raise AssertionError(f"attribute_train_step: {step}")
+    passes = quiet(attribute_streaming.main, ["--points", "200000"])
+    for rec in passes:
+        emit({"phase": "tools", "tool": "attribute_streaming", **rec})
+    if not (isinstance(passes[-1].get("device_s"), float)
+            and passes[-1]["device_s"] > 0):
+        raise AssertionError(f"attribute_streaming: {passes[-1]}")
+    rows = quiet(sweep_seg_conv.main, ["--quick"])
+    for rec in rows:
+        emit({"phase": "tools", "tool": "sweep_seg_conv", **rec})
+    if not (len(rows) == 4 and all(isinstance(r["sum_ms"], float)
+                                   and r["sum_ms"] > 0 for r in rows)):
+        raise AssertionError(f"sweep_seg_conv: {rows}")
+    t0 = time.perf_counter()
+    anchor = quiet(anchor_sweep.main, ["--config", "cls_synthetic_hard",
+                                       "--seeds", "0", "1", "--steps", "20"])
+    emit({"phase": "tools", "tool": "anchor_sweep",
+          "wall_s": time.perf_counter() - t0, **anchor})
+    if not all(0.0 <= v <= 1.0 for v in anchor["value_per_seed"]):
+        raise AssertionError(f"anchor_sweep: {anchor}")
+
+
 def phase_eval(dev, ckpts):
     """``python -m pointwise_torch.eval``'s flows on the train phase's
     checkpoints: rotation voting (12 votes) of the classifier, block voting
@@ -946,11 +1040,11 @@ def phase_trace(dev, n_points=200_000, top=8):
     (torch.profiler; CUPTI).  Reports "not measured" when the profiler sees
     no device time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from pointwise_torch import infer
     from pointwise_torch.streaming import stream_apply_layered
     from pointwise_torch.train import get_config
+    from pointwise_torch.utils import runtime
 
     cfg = get_config("s3dis_synthetic")
     model = infer.build_model(cfg, dev)
@@ -964,22 +1058,20 @@ def phase_trace(dev, n_points=200_000, top=8):
         torch.cuda.synchronize()
 
     run()                                           # allocator warm-up
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with runtime.profile(device=dev) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
-    busy, dev_ops, dev_us = device_busy_s(prof)
+    busy = runtime.device_seconds(prof)
     rec = {"phase": "trace", "n_points": len(xyz), "wall_s": wall}
     if busy <= 0:
-        rec["device_busy_s"] = "not measured"
+        rec["device_busy_s"] = runtime.NOT_MEASURED
     else:
+        ops = runtime.device_ops(prof)
         rec.update(device_busy_s=busy, device_idle_share=1.0 - busy / wall,
-                   kernel_ms=kernel_ms(dev_ops, dev_us),
-                   top=[{"op": e.key[:80], "ms": dev_us(e) / 1e3,
-                         "calls": e.count}
-                        for e in sorted(dev_ops, key=dev_us,
-                                        reverse=True)[:top]])
+                   kernel_ms={k: v * 1e3 for k, v in
+                              runtime.family_seconds(ops).items()},
+                   top=runtime.top_ops(ops, top))
     emit(rec)
 
 
@@ -1040,13 +1132,6 @@ def spatial_batches(cfg, n):
     return list(itertools.islice(it, n))
 
 
-def sync(dev):
-    import torch
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-
-
 def spatial_worker(mesh, steps, configs):
     """One rank of the spatial phase's 2-rank runs (spawned by
     pointwise_torch.parallel.launch, which imports this module): the
@@ -1063,6 +1148,7 @@ def spatial_worker(mesh, steps, configs):
     from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
     from pointwise_torch.train import cli
     from pointwise_torch.train.trainer import Trainer, step_seed
+    from pointwise_torch.utils.runtime import sync
 
     dev = mesh.device
     seg, cls = configs
@@ -1081,11 +1167,12 @@ def spatial_worker(mesh, steps, configs):
         sync(dev)
         tk.reset_launches()
         with contextlib.redirect_stdout(io.StringIO()):   # rank 0's JSONL
-            go(on_step)
+            trainer = go(on_step)
         sync(dev)
         out[name] = dict(launches=dict(tk.LAUNCHES), metrics=metrics,
                          ms_per_step=(marks[-1] - marks[0])
-                         / (len(marks) - 1) * 1e3)
+                         / (len(marks) - 1) * 1e3,
+                         state_sha256=state_digest(trainer.model))
 
     def trained(cfg, model, loss_fn, on_step, **spmd):
         trainer = Trainer(model.to(dev), loss_fn, cfg.optimizer, mesh=mesh,
@@ -1093,6 +1180,15 @@ def spatial_worker(mesh, steps, configs):
         for step, batch in enumerate(spatial_batches(cfg, steps)):
             on_step(step + 1, trainer.step(pipeline.to_device(batch, dev),
                                            step_seed(cfg.seed, step)))
+        return trainer
+
+    def seg_ring(remat):
+        return PointwiseSegmenter(
+            num_classes=seg.num_classes, in_features=seg.in_features,
+            channels=seg.channels, radii=seg.radii, head_dims=seg.head_dims,
+            dropout_rate=0.0, impl="spatial:space:ring", remat=remat,
+            use_global_context=seg.global_context, mesh=mesh,
+            generator=cli._init_generator(seg))
 
     args = cli.parse_args(["--config", seg.name, "--steps", str(steps),
                            "--sp", "2", "--device", dev.type])
@@ -1101,12 +1197,11 @@ def spatial_worker(mesh, steps, configs):
     run("gather_bn", lambda on_step: cli.train_segmentation(
         dataclasses.replace(seg, norm="batch"), args, dev, on_step, mesh,
         jitter=0.0))
-    run("seg_ring", lambda on_step: trained(seg, PointwiseSegmenter(
-        num_classes=seg.num_classes, in_features=seg.in_features,
-        channels=seg.channels, radii=seg.radii, head_dims=seg.head_dims,
-        dropout_rate=0.0, impl="spatial:space:ring",
-        use_global_context=seg.global_context, mesh=mesh,
-        generator=cli._init_generator(seg)), seg_spmd_loss_fn(), on_step))
+    run("seg_ring", lambda on_step: trained(seg, seg_ring(False),
+                                            seg_spmd_loss_fn(), on_step))
+    run("seg_ring_remat", lambda on_step: trained(seg, seg_ring(True),
+                                                  seg_spmd_loss_fn(),
+                                                  on_step))
     run("cls_ring", lambda on_step: trained(cls, PointwiseClassifier(
         num_classes=cls.num_classes, channels=cls.channels, radii=cls.radii,
         head_dims=cls.head_dims, dropout_rate=0.0,
@@ -1188,6 +1283,7 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
 
     from pointwise_torch.parallel import launch
     from pointwise_torch.train import cli
+    from pointwise_torch.utils.runtime import sync
 
     seg, cls = configs or spatial_configs()
     single, calls = {}, {}
@@ -1216,6 +1312,7 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
                        timeout=900, comm_timeout=300, threads=4)
     wall = time.perf_counter() - t0
     launches = collections.Counter()
+    runs_by_name = {}
     gather = ("fwd_csr", "dw_csr", "dx_csr", "dw_product", "dx_product")
     for name, key, cfg, need in (
             ("gather", "seg", seg, gather),
@@ -1224,6 +1321,9 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
             ("seg_ring", "seg", seg, ("counts_csr", "fwd_ext_dense",
                                       "dw_dense", "dx_dense", "dw_product",
                                       "dx_product")),
+            ("seg_ring_remat", "seg", seg, ("counts_csr", "fwd_ext_dense",
+                                            "dw_dense", "dx_dense",
+                                            "dw_product", "dx_product")),
             ("cls_ring", "cls", cls, ("counts_dense", "fwd_ext_dense",
                                       "dw_dense", "dx_dense", "dw_product",
                                       "dx_product"))):
@@ -1250,6 +1350,25 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
                 and all(math.isfinite(m["loss"]) for m in runs[0]["metrics"])):
             raise AssertionError(f"spatial run {name} failed: {rec}")
         launches.update(got)
+        runs_by_name[name] = (runs, got)
+    # remat: the same bits, the ring's forward (counts pre-pass and
+    # partials) launched again inside the backward
+    (plain, plain_l), (remat, remat_l) = (runs_by_name[k] for k in (
+        "seg_ring", "seg_ring_remat"))
+    rec = dict(run="seg_ring_remat", against="seg_ring",
+               metrics_equal=all(a["metrics"] == b["metrics"]
+                                 for a, b in zip(plain, remat)),
+               state_equal=all(a["state_sha256"] == b["state_sha256"]
+                               for a, b in zip(plain, remat)),
+               forward_launches={k: (plain_l[k], remat_l[k])
+                                 for k in ("counts_csr", "fwd_ext_dense")},
+               backward_launches={k: (plain_l[k], remat_l[k])
+                                  for k in ("dw_dense", "dx_dense")})
+    emit({"phase": "spatial", **rec})
+    if not (rec["metrics_equal"] and rec["state_equal"]
+            and all(b == 2 * a for a, b in rec["forward_launches"].values())
+            and all(a == b for a, b in rec["backward_launches"].values())):
+        raise AssertionError(f"the ring with remat differs: {rec}")
     emit({"phase": "spatial", "ranks_wall_s": wall})
     return launches, calls
 
@@ -1465,17 +1584,9 @@ def phase_subblock(dev, subblock=8, reps=5):
 
 
 def cuda_time_ms(fn, reps, warmup=1):
-    import torch
+    from pointwise_torch.utils.runtime import event_ms
 
-    for _ in range(warmup):
-        fn()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return event_ms(fn, reps, warmup)
 
 
 def bound(inputs, outputs, pairs, pair_width, rows, cin, cout, bf16):
@@ -1816,22 +1927,36 @@ def main():
     emit({"phase": "device", "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(), "nvidia_smi": smi,
           "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    def phase(name, fn, *args):
+        """``fn(*args)``, then a ``clock`` line with its wall seconds."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        emit({"phase": "clock", "of": name, "call": fn.__name__,
+              "wall_s": time.perf_counter() - t0})
+        return out
+
     t0 = time.perf_counter()
     tk.build_libraries()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in tk.LIBRARY["ptxas"].splitlines()
                     if "registers" in ln or "spill" in ln or "smem" in ln]})
-    phase_parity(dev)
-    phase_grad(dev)
-    phase_ext(dev)
+    phase("parity", phase_parity, dev)
+    phase("grad", phase_grad, dev)
+    phase("ext", phase_ext, dev)
     os.makedirs(tk._BUILD_DIR, exist_ok=True)     # ignored by git
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
-        launches, replies, served, model = phase_serve(dev, workdir)
-        trained, train_calls, per_step, ckpts = phase_train(dev, workdir)
-        phase_serve_trained(dev, ckpts[TRAIN_CONFIGS[0][0]])
-        phase_eval(dev, ckpts)
-        partseg_calls, partseg_per_step = phase_partseg(dev, workdir)
-        phase_batchnorm(dev, workdir)
+        launches, replies, served, model = phase("serve", phase_serve, dev,
+                                                 workdir)
+        trained, train_calls, per_step, ckpts = phase("train", phase_train,
+                                                      dev, workdir)
+        phase("train", phase_serve_trained, dev,
+              ckpts[TRAIN_CONFIGS[0][0]])
+        phase("eval", phase_eval, dev, ckpts)
+        partseg_calls, partseg_per_step = phase("partseg", phase_partseg,
+                                                dev, workdir)
+        phase("batchnorm", phase_batchnorm, dev, workdir)
+    phase("remat", phase_remat, dev)
     # each kernel's launches come from its own path: the forward's from the
     # serve phase, dW's and dX's from the training run of their walk
     for rec in trained.values():
@@ -1840,20 +1965,24 @@ def main():
             launches[name] = rec["launches"][name]
     for name in ("dw_product", "dx_product"):    # both training runs
         launches[name] = sum(rec["launches"][name] for rec in trained.values())
-    phase_trace(dev)
-    phase_exact(dev)
+    phase("trace", phase_trace, dev)
+    phase("exact", phase_exact, dev)
     # the ring's launches: the served-scale split (a) for the CSR walk of
     # the external-counts forward, the 2-rank runs (b) for the rest
-    ext_launches, served_part = phase_spatial_served(dev,
-                                                     served[("fwd_csr", 3)])
+    ext_launches, served_part = phase("spatial", phase_spatial_served, dev,
+                                      served[("fwd_csr", 3)])
     launches["fwd_ext_csr"] = ext_launches["fwd_ext_csr"]
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
-        ring_launches, ring_calls = phase_spatial_ranks(dev, workdir)
+        ring_launches, ring_calls = phase("spatial", phase_spatial_ranks,
+                                          dev, workdir)
     for k in ("counts_dense", "counts_csr", "fwd_ext_dense"):
         launches[k] = ring_launches[k]
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
-        phase_serve_parallel(dev, workdir, smi, replies)
-    phase_subblock(dev)
+        phase("serve_parallel", phase_serve_parallel, dev, workdir, smi,
+              replies)
+    phase("subblock", phase_subblock, dev)
+    phase("tools", phase_tools, dev)
+    t0 = time.perf_counter()
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))
     calls.update(train_calls)
@@ -1866,6 +1995,8 @@ def main():
     phase_times({("fwd_dense", top): partseg_calls[("dw_dense", top)],
                  ("dw_dense", top): partseg_calls[("dw_dense", top)]},
                 partseg_per_step, path="shapenetpart")
+    emit({"phase": "clock", "of": "times",
+          "wall_s": time.perf_counter() - t0})
     kernels = []
     for name, (replaces, source) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]

@@ -26,8 +26,8 @@ class PointwiseClassifier(nn.Module):
     ``context_axes=('space',)`` and ``mesh=`` it runs on points sharded
     over the mesh's space group; the pooled head is then identical on every member
     (its dropout must not fold in the space index: the trainer's
-    ``rng_axes=('data',)``).  ``mesh`` and ``norm='batch'`` as in
-    ``PointwiseSegmenter``."""
+    ``rng_axes=('data',)``).  ``mesh``, ``norm='batch'`` and ``remat``
+    as in ``PointwiseSegmenter``."""
 
     def __init__(self, num_classes: int = 40, in_features: int = 3, *,
                  channels: Sequence[int] = (124, 124, 124, 124),
@@ -35,14 +35,14 @@ class PointwiseClassifier(nn.Module):
                  head_dims: Sequence[int] = (256, 128),
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
-                 context_axes: Sequence[str] = (),
+                 remat: bool = False, context_axes: Sequence[str] = (),
                  mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.context = context_group(mesh, context_axes)
         self.blocks = trunk(in_features, channels, radii, impl=impl,
-                            norm=norm, precision=precision, mesh=mesh,
-                            device=device, generator=generator)
+                            norm=norm, precision=precision, remat=remat,
+                            mesh=mesh, device=device, generator=generator)
         dims = [2 * channels[-1], *head_dims]
         self.head = nn.ModuleList(
             dense(dims[i], d, device, generator)

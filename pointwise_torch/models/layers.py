@@ -14,6 +14,7 @@ import math
 import torch
 import torch.distributed as dist
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from pointwise_torch.ops.pointwise_conv import pointwise_conv
 from pointwise_torch.parallel.mesh import all_reduce
@@ -119,7 +120,16 @@ class MaskedBatchNorm(nn.Module):
                              torch.ones(features, device=device))
 
     def forward(self, x, mask=None):
+        y, moments = self.normalize(x, mask)
+        if moments is not None:
+            self.update(*moments)
+        return y
+
+    def normalize(self, x, mask=None):
+        """(normalized x, the batch (mean, var) in training else None): the
+        forward without moving the running averages."""
         xf = x.float()
+        moments = None
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
@@ -135,15 +145,17 @@ class MaskedBatchNorm(nn.Module):
             cnt = torch.clamp_min(cnt, 1.0)
             mean = s / cnt
             var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
-            with torch.no_grad():
-                self.running_mean.copy_(
-                    self.momentum * self.running_mean
-                    + (1.0 - self.momentum) * mean)
-                self.running_var.copy_(
-                    self.momentum * self.running_var
-                    + (1.0 - self.momentum) * var)
+            moments = (mean.detach(), var.detach())
         y = (xf - mean) * torch.rsqrt(var + self.epsilon)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return (y * self.weight + self.bias).to(x.dtype), moments
+
+    @torch.no_grad()
+    def update(self, mean, var):
+        """Move the running averages toward a batch's moments."""
+        self.running_mean.copy_(self.momentum * self.running_mean
+                                + (1.0 - self.momentum) * mean)
+        self.running_var.copy_(self.momentum * self.running_var
+                               + (1.0 - self.momentum) * var)
 
 
 class PointwiseConvBlock(nn.Module):
@@ -151,13 +163,22 @@ class PointwiseConvBlock(nn.Module):
     Under ``mesh`` a ``norm='batch'`` block reduces its moments over the
     mesh's ``world`` group (``MaskedBatchNorm``): every rank holds part of
     the batch, so the moments are global, as the JAX package's are under
-    --dp (a jit over the global batch) and --sp (``bn_axes``)."""
+    --dp (a jit over the global batch) and --sp (``bn_axes``).
+
+    ``remat``: while training with gradients on, the block keeps none of
+    its activations and the backward recomputes them (``nn.remat`` of the
+    JAX nets): the conv kernels (and under a mesh the block's collectives)
+    run again inside the backward, in the same order on every rank.  The
+    BatchNorm running averages move once per forward, outside the
+    recomputed part, as flax drops the recompute's state updates."""
 
     def __init__(self, in_features: int, features: int, radius: float, *,
                  impl: str = "auto", norm: str = "layer",
-                 precision: str = "bfloat16", mesh=None, device=None,
+                 precision: str = "bfloat16", remat: bool = False,
+                 mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.remat = remat
         self.conv = PointwiseConv(in_features, features, radius, impl=impl,
                                   precision=precision, mesh=mesh,
                                   device=device, generator=generator)
@@ -174,16 +195,31 @@ class PointwiseConvBlock(nn.Module):
             raise ValueError(f"unknown norm: {norm!r}")
 
     def forward(self, points, x, mask=None, centers=None, center_mask=None):
+        args = (points, x, mask, centers, center_mask)
+        if self.remat and self.training and torch.is_grad_enabled():
+            # preserve_rng_state=False: a block draws no random numbers
+            # (dropout lives in the heads), so there is no state to replay
+            y, moments = checkpoint(self._body, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+        else:
+            y, moments = self._body(*args)
+        if moments is not None:
+            self.norm.update(*moments)
+        return y
+
+    def _body(self, points, x, mask, centers, center_mask):
+        """(the block's output, BatchNorm's batch moments or None)."""
         y = self.conv(points, x, mask, centers, center_mask)
         out_mask = mask if centers is None else center_mask
+        moments = None
         if isinstance(self.norm, MaskedBatchNorm):
-            y = self.norm(y, out_mask)
+            y, moments = self.norm.normalize(y, out_mask)
         elif self.norm is not None:
             y = self.norm(y)
         y = torch.relu(y)
         if out_mask is not None:
             y = y * out_mask.to(y.dtype)[..., None]
-        return y
+        return y, moments
 
 
 def trunk(in_features: int, channels, radii, **block_kw) -> nn.ModuleList:

@@ -32,6 +32,10 @@ class PointwiseSegmenter(nn.Module):
     global-context pool reduce across it (the JAX model's field of the same
     name); under ``mesh`` the ``norm='batch'`` moments are global over it
     (``PointwiseConvBlock``).
+
+    ``remat=True`` recomputes each trunk block's activations in the
+    backward instead of keeping them (``PointwiseConvBlock``); the outputs,
+    gradients and ``state_dict`` keys are those of ``remat=False``.
     """
 
     def __init__(self, num_classes: int, in_features: int, *,
@@ -40,7 +44,7 @@ class PointwiseSegmenter(nn.Module):
                  head_dims: Sequence[int] = (256, 128),
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
-                 use_global_context: bool = True,
+                 remat: bool = False, use_global_context: bool = True,
                  context_axes: Sequence[str] = (),
                  mesh=None, device=None,
                  generator: torch.Generator | None = None):
@@ -48,8 +52,8 @@ class PointwiseSegmenter(nn.Module):
         self.use_global_context = use_global_context
         self.context = context_group(mesh, context_axes)
         self.blocks = trunk(in_features, channels, radii, impl=impl,
-                            norm=norm, precision=precision, mesh=mesh,
-                            device=device, generator=generator)
+                            norm=norm, precision=precision, remat=remat,
+                            mesh=mesh, device=device, generator=generator)
         h = sum(channels) + (2 * channels[-1] if use_global_context else 0)
         dims = [h, *head_dims]
         self.head = nn.ModuleList(
@@ -141,8 +145,8 @@ class ShapeNetPartSegmenter(nn.Module):
 
     Submodules: ``blocks``, ``embed`` (the JAX tree's ``Dense_0``: flax
     names the category embedding first), ``head`` (``Dense_1`` ..) and
-    ``out`` (the last ``Dense_*``); convert.py maps them.  ``context_axes``
-    and ``mesh`` as in ``PointwiseSegmenter``."""
+    ``out`` (the last ``Dense_*``); convert.py maps them.  ``context_axes``,
+    ``mesh`` and ``remat`` as in ``PointwiseSegmenter``."""
 
     def __init__(self, num_parts: int = 50, num_categories: int = 16,
                  in_features: int = 3, *,
@@ -151,15 +155,15 @@ class ShapeNetPartSegmenter(nn.Module):
                  head_dims: Sequence[int] = (256, 128),
                  dropout_rate: float = 0.3, norm: str = "layer",
                  impl: str = "auto", precision: str = "bfloat16",
-                 context_axes: Sequence[str] = (),
+                 remat: bool = False, context_axes: Sequence[str] = (),
                  mesh=None, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
         self.num_categories = num_categories
         self.context = context_group(mesh, context_axes)
         self.blocks = trunk(in_features, channels, radii, impl=impl,
-                            norm=norm, precision=precision, mesh=mesh,
-                            device=device, generator=generator)
+                            norm=norm, precision=precision, remat=remat,
+                            mesh=mesh, device=device, generator=generator)
         self.embed = dense(num_categories, 64, device, generator)
         dims = [sum(channels) + 2 * channels[-1] + 64, *head_dims]
         self.head = nn.ModuleList(

@@ -58,7 +58,8 @@ from pointwise_torch.parallel.spmd import (cls_spmd_loss_fn,
                                            partseg_spmd_loss_fn,
                                            seg_spmd_loss_fn)
 from pointwise_torch.train.configs import ClassificationConfig, get_config
-from pointwise_torch.train.trainer import Trainer, log_metrics, step_seed
+from pointwise_torch.train.trainer import (SummaryWriter, Trainer,
+                                           log_metrics, step_seed)
 
 # the eval seeds sit far from the step seeds (the JAX loop's 1 << 30 offset)
 _EVAL_KEY = 1 << 30
@@ -73,7 +74,9 @@ def run_train_loop(trainer: Trainer, cfg, args, *, make_epoch_iter,
 
     Step ``s`` runs on seed ``step_seed(seed, s)`` and on batch
     ``s % steps_per_epoch`` of epoch ``s // steps_per_epoch``; checkpoints
-    carry the seed.  ``on_step(step, metrics)`` runs after every step."""
+    carry the seed.  ``on_step(step, metrics)`` runs after every step.
+    The printed metrics also go to ``args.tensorboard`` as scalars
+    (``SummaryWriter``)."""
     seed = cfg.seed
     if args.resume and cfg.checkpoint_dir:
         start = trainer.restore_checkpoint(cfg.checkpoint_dir)
@@ -83,39 +86,45 @@ def run_train_loop(trainer: Trainer, cfg, args, *, make_epoch_iter,
     extra = {"seed": seed}
     device = trainer.device
     printing = trainer.mesh is None or trainer.mesh.rank == 0
+    writer = SummaryWriter(args.tensorboard if printing else None)
 
     t0 = time.time()
     step = trainer.step_count
-    while step < max_steps:
-        it = make_epoch_iter(step // steps_per_epoch)
-        skip = step % steps_per_epoch
-        if skip:
-            it = itertools.islice(it, skip, None)
-        step_at_entry = step
-        for batch in pipeline.prefetch_to_device(it, device):
-            metrics = trainer.step(batch, step_seed(seed, step))
-            step += 1
-            if on_step is not None:
-                on_step(step, metrics)
-            if printing and (step % cfg.log_every == 0 or step == 1):
-                log_metrics(step, metrics, t0=t0)
-            if eval_iter is not None and (
-                    step % cfg.eval_every == 0 or step == max_steps):
-                ev = trainer.evaluate(
-                    pipeline.prefetch_to_device(eval_iter(), device),
-                    step_seed(seed, _EVAL_KEY + step))
-                if printing:
-                    log_metrics(step, ev, t0=t0, extra={"split": eval_split})
-            if cfg.checkpoint_dir and step % cfg.checkpoint_every == 0:
-                trainer.save_checkpoint(cfg.checkpoint_dir,
-                                        cfg.keep_checkpoints, extra=extra)
-            if step >= max_steps:
-                break
-        if step == step_at_entry:
-            raise ValueError(
-                "epoch iterator yielded no batches (dataset smaller than "
-                f"batch_size after the {skip}-batch resume offset?) — "
-                "training cannot make progress")
+    try:
+        while step < max_steps:
+            it = make_epoch_iter(step // steps_per_epoch)
+            skip = step % steps_per_epoch
+            if skip:
+                it = itertools.islice(it, skip, None)
+            step_at_entry = step
+            for batch in pipeline.prefetch_to_device(it, device):
+                metrics = trainer.step(batch, step_seed(seed, step))
+                step += 1
+                if on_step is not None:
+                    on_step(step, metrics)
+                if printing and (step % cfg.log_every == 0 or step == 1):
+                    log_metrics(step, metrics, t0=t0, writer=writer)
+                if eval_iter is not None and (
+                        step % cfg.eval_every == 0 or step == max_steps):
+                    ev = trainer.evaluate(
+                        pipeline.prefetch_to_device(eval_iter(), device),
+                        step_seed(seed, _EVAL_KEY + step))
+                    if printing:
+                        log_metrics(step, ev, t0=t0,
+                                    extra={"split": eval_split},
+                                    writer=writer, prefix="eval/")
+                if cfg.checkpoint_dir and step % cfg.checkpoint_every == 0:
+                    trainer.save_checkpoint(cfg.checkpoint_dir,
+                                            cfg.keep_checkpoints, extra=extra)
+                if step >= max_steps:
+                    break
+            if step == step_at_entry:
+                raise ValueError(
+                    "epoch iterator yielded no batches (dataset smaller than "
+                    f"batch_size after the {skip}-batch resume offset?) — "
+                    "training cannot make progress")
+    finally:
+        writer.close()
     if cfg.checkpoint_dir:
         trainer.save_checkpoint(cfg.checkpoint_dir, cfg.keep_checkpoints,
                                 extra=extra)
@@ -128,11 +137,14 @@ def _init_generator(cfg) -> torch.Generator:
     return torch.Generator().manual_seed(cfg.seed)
 
 
-def build_classifier(cfg: ClassificationConfig, device, mesh=None):
+def build_classifier(cfg: ClassificationConfig, device, mesh=None,
+                     remat=False):
+    """The classifier (``remat``: recompute its blocks in the backward) and
+    its loss (the per-cloud augmentation, then cross-entropy)."""
     model = PointwiseClassifier(
         num_classes=cfg.num_classes, channels=cfg.channels, radii=cfg.radii,
         head_dims=cfg.head_dims, dropout_rate=cfg.dropout, norm=cfg.norm,
-        impl=cfg.impl, mesh=mesh,
+        impl=cfg.impl, remat=remat, mesh=mesh,
         generator=_init_generator(cfg)).to(device)
 
     def loss_fn(model, batch, generator, train):
@@ -146,17 +158,18 @@ def build_classifier(cfg: ClassificationConfig, device, mesh=None):
     return model, loss_fn
 
 
-def build_segmenter(cfg, device, mesh=None, jitter=SEG_JITTER):
+def build_segmenter(cfg, device, mesh=None, jitter=SEG_JITTER, remat=False):
     """The segmenter and its loss (per-point jitter of sigma ``jitter``);
     under a mesh with space > 1 its convs shard the point dim
-    (``impl='spatial:space'``, gather)."""
+    (``impl='spatial:space'``, gather).  ``remat``: recompute its blocks in
+    the backward."""
     spatial = mesh is not None and mesh.space > 1
     model = PointwiseSegmenter(
         num_classes=cfg.num_classes, in_features=cfg.in_features,
         channels=cfg.channels, radii=cfg.radii, head_dims=cfg.head_dims,
         dropout_rate=cfg.dropout, norm=cfg.norm,
         impl="spatial:space" if spatial else cfg.impl,
-        use_global_context=cfg.global_context,
+        remat=remat, use_global_context=cfg.global_context,
         context_axes=("space",) if spatial and cfg.global_context else (),
         mesh=mesh,
         generator=_init_generator(cfg)).to(device)
@@ -172,14 +185,15 @@ def build_segmenter(cfg, device, mesh=None, jitter=SEG_JITTER):
     return model, loss_fn
 
 
-def build_partseg(cfg, data, device, mesh=None):
+def build_partseg(cfg, data, device, mesh=None, remat=False):
     """The part segmenter (``data.num_parts`` parts, ``data.num_categories``
-    categories) and its loss; no augmentation, dropout only."""
+    categories; ``remat``: recompute its blocks in the backward) and its
+    loss; no augmentation, dropout only."""
     model = ShapeNetPartSegmenter(
         num_parts=data.num_parts, num_categories=data.num_categories,
         in_features=cfg.in_features, channels=cfg.channels, radii=cfg.radii,
         head_dims=cfg.head_dims, dropout_rate=cfg.dropout, norm=cfg.norm,
-        impl=cfg.impl, mesh=mesh,
+        impl=cfg.impl, remat=remat, mesh=mesh,
         generator=_init_generator(cfg)).to(device)
 
     def loss_fn(model, batch, generator, train):
@@ -200,7 +214,7 @@ def _trainer(model, loss_fn, sums_fn, cfg, mesh, **spmd):
 
 
 def train_classification(cfg: ClassificationConfig, args, device,
-                         on_step=None, mesh=None) -> Trainer:
+                         on_step=None, mesh=None, remat=False) -> Trainer:
     data_dir = cfg.data_dir or args.data_dir
     train_data = modelnet.load_modelnet40(data_dir, "train", cfg.num_points,
                                           seed=cfg.seed, variant=cfg.variant)
@@ -211,7 +225,7 @@ def train_classification(cfg: ClassificationConfig, args, device,
     ncls = max(train_data.num_classes, test_data.num_classes)
     if ncls != cfg.num_classes:
         cfg = dataclasses.replace(cfg, num_classes=ncls)
-    model, loss_fn = build_classifier(cfg, device, mesh)
+    model, loss_fn = build_classifier(cfg, device, mesh, remat)
 
     def augment_clouds(batch, generator):
         # per-cloud augmentation of the global batch, before sharding
@@ -235,7 +249,7 @@ def train_classification(cfg: ClassificationConfig, args, device,
 
 
 def train_segmentation(cfg, args, device, on_step=None, mesh=None,
-                       jitter=SEG_JITTER) -> Trainer:
+                       jitter=SEG_JITTER, remat=False) -> Trainer:
     # heldout ROOMS for the periodic eval: overlapping-stride blocks of one
     # room share points, so a block-level split would leak
     if cfg.name.startswith("scenenn"):
@@ -256,7 +270,7 @@ def train_segmentation(cfg, args, device, on_step=None, mesh=None,
         n_eval = max(cfg.batch_size, len(blocks["points"]) // 10)
         eval_blocks = {k: v[:n_eval] for k, v in blocks.items()}
         blocks = {k: v[n_eval:] for k, v in blocks.items()}
-    model, loss_fn = build_segmenter(cfg, device, mesh, jitter)
+    model, loss_fn = build_segmenter(cfg, device, mesh, jitter, remat)
     trainer = _trainer(model, loss_fn, seg_spmd_loss_fn(jitter_sigma=jitter),
                        cfg, mesh,
                        space_axis="space" if mesh and mesh.space > 1
@@ -275,14 +289,14 @@ def train_segmentation(cfg, args, device, on_step=None, mesh=None,
         on_step=on_step)
 
 
-def train_shapenetpart(cfg, args, device, on_step=None,
-                       mesh=None) -> Trainer:
+def train_shapenetpart(cfg, args, device, on_step=None, mesh=None,
+                       remat=False) -> Trainer:
     """Part segmentation on the train split: dropout only, no periodic
     evaluation (``python -m pointwise_torch.eval`` scores a checkpoint)."""
     data = shapenetpart.load_shapenetpart(
         cfg.data_dir or args.data_dir, "train", cfg.num_points, seed=cfg.seed,
         variant=cfg.variant)
-    model, loss_fn = build_partseg(cfg, data, device, mesh)
+    model, loss_fn = build_partseg(cfg, data, device, mesh, remat)
     trainer = _trainer(model, loss_fn, partseg_spmd_loss_fn(), cfg, mesh)
     steps_per_epoch = max(1, len(data.category) // cfg.batch_size)
     return run_train_loop(
@@ -312,7 +326,8 @@ def parse_args(argv=None):
                          "masked BatchNorm, moments over every rank of a "
                          "mesh)")
     ap.add_argument("--tensorboard", default=None,
-                    help="tf.summary logdir: not yet ported")
+                    help="TensorBoard logdir of the printed metrics (a "
+                         "no-op without the tensorboard package)")
     ap.add_argument("--dp", action="store_true",
                     help="data parallelism over every rank (torchrun; one "
                          "rank without a launcher)")
@@ -322,21 +337,22 @@ def parse_args(argv=None):
     return ap.parse_args(argv)
 
 
-def main(argv=None, on_step=None, mesh=None) -> Trainer:
+def main(argv=None, on_step=None, mesh=None, remat=False) -> Trainer:
     """Run the CLI; returns the trainer.  ``on_step(step, metrics)`` runs
     after every step (chip_smoke.py times steps with it).  ``mesh``: run
     as this rank of an existing mesh (on its device) instead of building
-    one from the launcher's environment."""
+    one from the launcher's environment.  ``remat``: the model's blocks
+    recompute their activations in the backward (a model field, as in the
+    JAX nets; no flag of the CLI)."""
     args = parse_args(argv)
-    if args.tensorboard:
-        raise NotImplementedError("--tensorboard: not yet ported")
     cfg = get_config(args.config)
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
     partseg = cfg.name.startswith("shapenetpart")
     if args.sp > 1 and isinstance(cfg, ClassificationConfig):
-        raise NotImplementedError("--sp for classification (a classifier "
-                                  "built with space shards): not yet ported")
+        raise ValueError("--sp shards semantic segmentation only: the JAX "
+                         "train.py trains no classifier with space shards "
+                         "(its mesh for classification is --dp's)")
     if args.sp > 1 and partseg:
         raise ValueError("--sp shards semantic segmentation only; train "
                          "ShapeNetPart with --dp (as train.py does)")
@@ -352,7 +368,8 @@ def main(argv=None, on_step=None, mesh=None) -> Trainer:
             print(f"# mesh data:{mesh.data} x space:{mesh.space} "
                   f"backend={mesh.backend}", flush=True)
     if isinstance(cfg, ClassificationConfig):
-        return train_classification(cfg, args, device, on_step, mesh)
+        return train_classification(cfg, args, device, on_step, mesh, remat)
     if partseg:
-        return train_shapenetpart(cfg, args, device, on_step, mesh)
-    return train_segmentation(cfg, args, device, on_step, mesh)
+        return train_shapenetpart(cfg, args, device, on_step, mesh, remat)
+    return train_segmentation(cfg, args, device, on_step, mesh,
+                              remat=remat)

@@ -14,7 +14,8 @@ A port of pointwise_tpu/train/trainer.py:
   * checkpoints keep the newest ``keep`` files of {step, model, optimizer,
     extra} (``torch.save``; the JAX package's orbax checkpoints are not
     read);
-  * ``log_metrics`` prints one JSON line per record.
+  * ``log_metrics`` prints one JSON line per record and, through a
+    ``SummaryWriter``, logs its metrics as TensorBoard scalars.
 
 Randomness: ``step`` takes an integer seed; the augmentation generator and
 the dropout seed both derive from it, so a step replays exactly from
@@ -315,10 +316,43 @@ def load_checkpoint(directory: str, step: int | None = None,
                       map_location=map_location, weights_only=True)
 
 
+class SummaryWriter:
+    """TensorBoard scalars under ``logdir`` (``torch.utils.tensorboard``),
+    as the JAX package's tf.summary writer logs them; without the
+    tensorboard package (or with no ``logdir``) a no-op, which says once
+    that no scalars are written."""
+
+    def __init__(self, logdir: str | None):
+        self._writer = None
+        if not logdir:
+            return
+        try:
+            from torch.utils.tensorboard import SummaryWriter as _Writer
+        except ImportError:
+            print(f"# --tensorboard {logdir}: the tensorboard package is "
+                  "missing, no scalars are written", flush=True)
+            return
+        self._writer = _Writer(logdir)
+
+    def scalars(self, step: int, metrics: dict, prefix: str = ""):
+        if self._writer is None:
+            return
+        for k, v in metrics.items():
+            self._writer.add_scalar(prefix + k, float(v), step)
+        self._writer.flush()
+
+    def close(self):
+        if self._writer is not None:
+            self._writer.close()
+
+
 def log_metrics(step: int, metrics: dict, *, t0: float | None = None,
-                extra: dict | None = None) -> dict:
+                extra: dict | None = None,
+                writer: SummaryWriter | None = None,
+                prefix: str = "") -> dict:
     """Print (and return) one JSON record: step, float metrics, elapsed
-    seconds since ``t0``, and ``extra`` keys."""
+    seconds since ``t0``, and ``extra`` keys; ``writer`` logs the metrics
+    as scalars named ``prefix + name``."""
     rec = {"step": step}
     rec.update({k: float(v) for k, v in metrics.items()})
     if t0 is not None:
@@ -326,4 +360,6 @@ def log_metrics(step: int, metrics: dict, *, t0: float | None = None,
     if extra:
         rec.update(extra)
     print(json.dumps(rec), flush=True)
+    if writer is not None:
+        writer.scalars(step, metrics, prefix)
     return rec
