@@ -84,7 +84,8 @@ Phases, each printing one JSON line:
            candidate slabs through the public ops: pointwise_conv_counts on
            the whole set, 4 ext_counts partials summed in f32 against the
            forward (``compare``), with the CUDA-event ms of the counts call,
-           each partial and the forward on the whole set.  (b) 2 ranks
+           each partial and the forward on the whole set, and the counts
+           equal to the forward's own bit for bit.  (b) 2 ranks
            spawned on cuda:0 over gloo (host-staged; NCCL refuses two ranks
            on one card), s3dis_synthetic_local at full width, 8 x 4096, bf16,
            dropout and jitter 0: 3 steps of the train CLI's function with
@@ -96,11 +97,13 @@ Phases, each printing one JSON line:
            single-device trainer's on the same batch (2e-3, the JAX
            package's bf16 SPMD pin), grad norm > 0, its launches (counts
            zeroed just before, read just after, summed over the ranks) and
-           ms/step; and the segmentation ring once more with remat=True:
-           every step's metrics and the final state bit-identical to the
-           ring without remat, its counts pre-pass and partials launched
-           twice as often (recomputed in the backward).  No rate of (b) is
-           a multi-card number;
+           ms/step (steps 2-3 back to back), then one more step under
+           torch.profiler on each rank: rank 0's device ms of that step,
+           its counts kernel's ms and share; and the segmentation ring once
+           more with remat=True: every step's metrics and the final state
+           bit-identical to the ring without remat, its counts pre-pass and
+           partials launched twice as often (recomputed in the backward).
+           No rate of (b) is a multi-card number;
   serve_parallel  infer's --serve under a mesh: ranks spawned on cuda:0
            over gloo run ``launch.serve_worker`` (infer.main) with the
            serve phase's model and weights: --dp on 2 ranks (data 2), --sp
@@ -148,7 +151,11 @@ Phases, each printing one JSON line:
            means walk and product, dX's sums walk and product, each
            product's own rows against its plain version).  Each product row
            has the ms of one PyTorch call of the same function beside it
-           (``library_ms``; cuBLAS, never called by the port).  Then the
+           (``library_ms``; cuBLAS, never called by the port).  The counts
+           kernel at the shapes of the spatial phase's rings (CSR: 8 x 2048
+           centers of 8 x 4096 candidates; dense: 32 x 512 of 32 x 1024)
+           equal to its plain version and to itself launched again, bit for
+           bit, and the external-counts forward.  Then the
            same rows at ShapeNetPart's widest-radius layer (tagged
            ``path``), outside the kernels line.
 After each phase a ``clock`` line gives its wall seconds.  Then the
@@ -1137,8 +1144,10 @@ def spatial_worker(mesh, steps, configs):
     pointwise_torch.parallel.launch, which imports this module): the
     gather strategy through the train CLI's function (--sp 2, then --sp 2
     --norm batch), then the ring for the segmenter and for the classifier
-    through the Trainer.  Returns, per run, the launches, the step metrics
-    and ms/step."""
+    through the Trainer.  Each run takes ``steps`` steps timed as
+    ``StepWindow`` times them and one more under the profiler.  Returns,
+    per run, the launches, the step metrics, ms/step and the traced
+    step's device ms per kernel family."""
     import contextlib
     import io
 
@@ -1148,7 +1157,7 @@ def spatial_worker(mesh, steps, configs):
     from pointwise_torch.parallel.spmd import cls_spmd_loss_fn, seg_spmd_loss_fn
     from pointwise_torch.train import cli
     from pointwise_torch.train.trainer import Trainer, step_seed
-    from pointwise_torch.utils.runtime import sync
+    from pointwise_torch.utils.runtime import StepWindow, sync
 
     dev = mesh.device
     seg, cls = configs
@@ -1157,11 +1166,11 @@ def spatial_worker(mesh, steps, configs):
     out = {}
 
     def run(name, go):
-        marks, metrics = [], []
+        metrics = []
+        window = StepWindow(dev, 1, steps, steps + 1)
 
         def on_step(step, m):
-            sync(dev)
-            marks.append(time.perf_counter())
+            window(step)
             metrics.append({k: float(v) for k, v in m.items()})
 
         sync(dev)
@@ -1169,15 +1178,16 @@ def spatial_worker(mesh, steps, configs):
         with contextlib.redirect_stdout(io.StringIO()):   # rank 0's JSONL
             trainer = go(on_step)
         sync(dev)
+        summary = window.summary(top=4)
         out[name] = dict(launches=dict(tk.LAUNCHES), metrics=metrics,
-                         ms_per_step=(marks[-1] - marks[0])
-                         / (len(marks) - 1) * 1e3,
+                         ms_per_step=summary.pop("ms_per_step"),
+                         trace=summary,
                          state_sha256=state_digest(trainer.model))
 
     def trained(cfg, model, loss_fn, on_step, **spmd):
         trainer = Trainer(model.to(dev), loss_fn, cfg.optimizer, mesh=mesh,
                           space_axis="space", **spmd)
-        for step, batch in enumerate(spatial_batches(cfg, steps)):
+        for step, batch in enumerate(spatial_batches(cfg, steps + 1)):
             on_step(step + 1, trainer.step(pipeline.to_device(batch, dev),
                                            step_seed(cfg.seed, step)))
         return trainer
@@ -1190,7 +1200,7 @@ def spatial_worker(mesh, steps, configs):
             use_global_context=seg.global_context, mesh=mesh,
             generator=cli._init_generator(seg))
 
-    args = cli.parse_args(["--config", seg.name, "--steps", str(steps),
+    args = cli.parse_args(["--config", seg.name, "--steps", str(steps + 1),
                            "--sp", "2", "--device", dev.type])
     run("gather", lambda on_step: cli.train_segmentation(
         seg, args, dev, on_step, mesh, jitter=0.0))
@@ -1249,6 +1259,8 @@ def phase_spatial_served(dev, call, slabs=4):
         cnt_in = pad_counts(counts, kw_all["ctr"].shape[1])
         walk = (kw_all["ctr"], kw_all["pts"], r, kw_all["tile_ptr"],
                 kw_all["tile_idx"])
+        counts_equal = bool(torch.equal(tk.conv_counts(*walk),
+                                        tk.conv_fwd(**kw_all)[1]))
         counts_ms = cuda_time_ms(lambda: tk.conv_counts(*walk), reps=5)
         fwd_ms = cuda_time_ms(lambda: tk.conv_fwd(**kw_all), reps=5)
         parts = []
@@ -1262,14 +1274,32 @@ def phase_spatial_served(dev, call, slabs=4):
     rec = dict(candidates=int(points.shape[1]), centers=int(centers.shape[1]),
                cin=int(x.shape[2]), precision=prec, radius=r, slabs=slabs,
                launches=launches, max_abs_err=err,
-               max_abs_y=float(full.abs().max()), ok=ok, counts_ms=counts_ms,
+               max_abs_y=float(full.abs().max()), ok=ok,
+               counts_equal_forward=counts_equal, counts_ms=counts_ms,
                partial_ms=part_ms, partials_total_ms=sum(part_ms),
                forward_ms=fwd_ms)
     emit({"phase": "spatial", "served_split": rec})
-    if not (ok and launches["counts_csr"] == 1
+    if not (ok and counts_equal and launches["counts_csr"] == 1
             and launches["fwd_ext_csr"] == slabs):
         raise AssertionError(f"served-scale ring split failed: {rec}")
     return launches, (mod, parts[0], cnt_in, center_mask)
+
+
+def ring_trace(trace):
+    """Rank 0's traced step of a spatial run: device ms, the counts
+    kernel's ms and its share of the device ms ("not measured" without
+    device time)."""
+    from pointwise_torch.utils.runtime import NOT_MEASURED
+
+    dev_ms = trace["device_ms_per_step"]
+    if dev_ms == NOT_MEASURED:
+        return dict(device_ms=dev_ms, counts_ms=dev_ms, counts_share=dev_ms)
+    counts = trace["kernel_ms_per_step"]["counts"]
+    return dict(device_ms=dev_ms, counts_ms=counts,
+                counts_share=counts / dev_ms,
+                traced_wall_ms=trace["traced_ms_per_step"],
+                kernel_ms={k: v for k, v in
+                           trace["kernel_ms_per_step"].items() if v})
 
 
 def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
@@ -1341,6 +1371,7 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
                    grad_norm_min=min(m["grad_norm"] for r in runs
                                      for m in r["metrics"]),
                    ms_per_step=[r["ms_per_step"] for r in runs],
+                   traced_step=ring_trace(runs[0]["trace"]),
                    communication="gloo, host-staged, 2 ranks sharing one card "
                                  "(not a multi-card rate)")
         emit({"phase": "spatial", **rec})
@@ -1805,7 +1836,8 @@ def phase_times(calls, per_step, **tag):
 
 def counts_row(name, layer, radius, walk):
     """The counts kernel at one main-path shape: equal to its plain
-    version, CUDA-event ms (5 launches after one warm-up), the plain
+    version and to a second launch, bit for bit, CUDA-event ms (5 launches
+    after one warm-up, as every kernel row), the plain
     version's ms (one call) and the bound: the coordinates, the tile list
     and the counts moved once, against the walk's tested pairs at
     ``COUNTS_OPS_PER_PAIR`` f32 operations each."""
@@ -1814,7 +1846,8 @@ def counts_row(name, layer, radius, walk):
     from pointwise_torch.kernels import pointwise_conv_cuda as tk
 
     ctr, pts, _, ptr, idx = walk
-    out, ref = tk.conv_counts(*walk), tk.conv_counts_plain(*walk)
+    out, again = tk.conv_counts(*walk), tk.conv_counts(*walk)
+    ref = tk.conv_counts_plain(*walk)
     torch.cuda.synchronize()
     ms = cuda_time_ms(lambda: tk.conv_counts(*walk), reps=5)
     plain_ms = cuda_time_ms(lambda: tk.conv_counts_plain(*walk), reps=1,
@@ -1833,7 +1866,7 @@ def counts_row(name, layer, radius, walk):
                bound_ms=max(t_ops, t_bytes) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                max_abs_err=float((out - ref).abs().max()),
-               ok=bool(torch.equal(out, ref)))
+               ok=bool(torch.equal(out, ref) and torch.equal(out, again)))
     emit({"phase": "times", **row})
     if not row["ok"]:
         raise AssertionError(f"counts kernel != plain: {row}")

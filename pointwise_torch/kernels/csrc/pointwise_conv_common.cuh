@@ -3,10 +3,13 @@
 //
 //   pair_code     the cell code of one (center, candidate) pair, bit for bit
 //                 the TPU's _pairwise_code (pointwise_conv_pallas.py:140).
+//   cp_async16    16 bytes global -> shared by cp.async, with its commit and
+//                 wait.
 //
 // The tensor-core walk of the forward, dW and dX lives in
 // pointwise_conv_walk.cuh, the product of the forward and dX in
-// pointwise_conv_product.cuh; the counts kernel keeps its CUDA-core walk.
+// pointwise_conv_product.cuh; the counts kernel bins the same codes into a
+// shared-memory histogram (pointwise_conv_counts.cu).
 //
 // Exactness of the cell code (_pairwise_code :140-168): rel = candidate -
 // center in f32; d2 = rx*rx + ry*ry + rz*rz summed in that order; valid iff
@@ -28,8 +31,6 @@ namespace pw {
 
 constexpr int N_CELLS = 27;
 constexpr int TILE = 64;      // walk tile and row tile (points)
-constexpr int CPB = 8;        // centers per counts block, one warp each
-constexpr int THREADS = CPB * 32;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -43,6 +44,23 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; bytes past src_bytes are filled with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 __device__ __forceinline__ int axis_cell(float rel, float radius, float inv) {

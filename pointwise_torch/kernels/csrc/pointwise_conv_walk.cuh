@@ -1,7 +1,7 @@
 // pointwise_conv_walk.cuh — the tensor-core walk shared by the forward
 // (pointwise_conv_fwd.cu), the weight gradient (pointwise_conv_dw.cu) and
 // the feature gradient (pointwise_conv_dx.cu), and the PTX helpers
-// (cp.async, ldmatrix, mma.sync) of all three.
+// (ldmatrix, mma.sync) of all three.
 //
 // What it computes.  For every center i and cell k, the mean of the feature
 // rows of the in-ball candidates j with pair_code(i, j) == k, divided in f32
@@ -122,24 +122,7 @@ struct WalkRows<float> { static constexpr int value = TILE; };
 template <>
 struct WalkRows<__nv_bfloat16> { static constexpr int value = 2 * TILE; };
 
-// ---- PTX helpers ---------------------------------------------------------
-
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; bytes past src_bytes are filled with zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
+// ---- PTX helpers (cp.async: pointwise_conv_common.cuh) -------------------
 
 __device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"

@@ -512,6 +512,8 @@ def conv_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
         raise ValueError(f"unsupported device {ctr.device}")
     B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
     _check_device([ctr, pts, tile_ptr, tile_idx], ctr.device)
+    if pts.data_ptr() % 16:   # the kernel stages candidates 16 bytes a copy
+        pts = pts.clone()
     lib = build_libraries()["pointwise_conv_counts"]
     cnt = torch.empty((B, Ncp, N_CELLS), dtype=torch.float32,
                       device=ctr.device)

@@ -1,6 +1,6 @@
 """Point-cloud classification network (ModelNet40 workload).
 
-A port of ``PointwiseClassifier`` from pointwise_tpu/models/classifier.py:
+A port of ``PointwiseClassifier`` of pointwise_tpu/models/classifier.py:
 four stacked pointwise convolutions over the constant point set with
 growing radius, masked max+mean pooling, then a fully-connected head to
 the class logits.  Submodules ``blocks``, ``head`` and ``out`` carry the

@@ -240,16 +240,19 @@ class StepWindow:
                    traced_ms_per_step=(self.marks[self.end]
                                        - self.marks[self.last])
                    / traced * 1e3)
-        busy = device_seconds(self.prof)
-        if busy <= 0:
+        spans = [_ns(e) for e in device_events(self.prof.events())]
+        busy_ns = interval_union_ns(spans)
+        if busy_ns <= 0:
             out["device_ms_per_step"] = NOT_MEASURED
             return out
         ops = device_ops(self.prof)
-        dev_ms = busy * 1e3 / traced
+        # both totals in integer ns, so the ops' sum exceeds the busy time
+        # only where events overlap, never by the rounding of a float sum
+        dev_ms = busy_ns / 1e6 / traced
         out.update(
             device_ms_per_step=dev_ms,
             device_idle_share=1.0 - dev_ms / untraced,
-            op_ms_per_step=sum(s for s, _ in ops.values()) * 1e3 / traced,
+            op_ms_per_step=sum(b - a for a, b in spans) / 1e6 / traced,
             kernel_ms_per_step={k: v * 1e3 / traced for k, v in
                                 family_seconds(ops).items()},
             top=top_ops(ops, top, per=traced))

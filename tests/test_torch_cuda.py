@@ -180,6 +180,98 @@ def test_counts_kernel_matches_plain_and_forward(cuda, csr):
     assert torch.equal(cnt, cnt_p) and torch.equal(cnt, cnt_f)
 
 
+def _padded(a, rows, fill):
+    """(B, n, 3) numpy coordinates padded to ``rows`` with ``fill``."""
+    out = np.full((a.shape[0], rows, 3), fill, np.float32)
+    out[:, :a.shape[1]] = a
+    return out
+
+
+def _counts_case(case, dev):
+    """Kernel-level (ctr, pts, radius) of one counts case."""
+    rng = np.random.RandomState(7)
+    s = tk.SENTINEL
+    if case == "empty_row":
+        # center row 1 lies far from every candidate: its CSR list is empty
+        pts = rng.uniform(0, 1, (2, 256, 3)).astype(np.float32)
+        ctr = np.concatenate([pts[:, :64], pts[:, 64:128] + 10.0], 1)
+        r = 0.3
+    elif case == "masked_padded":
+        # 2,500 centers, a tenth masked, padded to 2,560; masked candidates
+        p = _scene_inputs(dev, cin=3)
+        kw, _ = conv_layout(p["points"], p["features"], p["weights"],
+                            p["bias"], radius=0.2, mask=p["mask"],
+                            centers=p["centers"],
+                            center_mask=p["center_mask"])
+        return kw["ctr"], kw["pts"], 0.2
+    elif case == "many_rows":
+        # 5 x 64 rows of 4,096 candidates each
+        pts = rng.uniform(-1, 1, (5, 4096, 3)).astype(np.float32)
+        ctr, r = pts, 0.2
+    elif case == "wide":
+        # Mp = 256 x Ncp
+        pts = rng.uniform(-1, 1, (1, 16384, 3)).astype(np.float32)
+        ctr, r = pts[:, :64], 0.4
+    elif case.startswith("exactly_r"):
+        # tests/test_torch_counts.py's grid of spacing r/3: pairs at exactly
+        # r and on cell faces
+        r = float(case.split("_")[-1])
+        g = np.stack(np.meshgrid(*([np.arange(5.0)] * 3)), -1).reshape(1, -1, 3)
+        pts = (g * (r / 3.0)).astype(np.float32)
+        ctr = _padded(pts, 128, -s)
+        pts = _padded(pts, 128, s)
+    else:   # over_65535: 70,016 candidates in cell 13 of every center
+        ctr = np.zeros((1, 64, 3), np.float32)
+        pts = np.full((1, 70016, 3), 0.05, np.float32)
+        r = 0.3
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    return t(ctr), t(pts), r
+
+
+COUNTS_CASES = [("empty_row", True), ("many_rows", False),
+                ("many_rows", True), ("masked_padded", False),
+                ("masked_padded", True), ("wide", False),
+                ("exactly_r_0.375", False), ("exactly_r_0.375", True),
+                ("exactly_r_0.75", False), ("exactly_r_0.75", True),
+                ("over_65535", False), ("over_65535", True)]
+
+
+@pytest.mark.parametrize("case,csr", COUNTS_CASES,
+                         ids=[f"{c}-{'csr' if x else 'dense'}"
+                              for c, x in COUNTS_CASES])
+def test_counts_kernel_edge_cases(cuda, case, csr):
+    # bit for bit against the plain version and the forward's own counts,
+    # and from one launch to the next
+    ctr, pts, r = _counts_case(case, cuda)
+    ptr = idx = None
+    if csr:
+        ptr, idx = tk.tile_adjacency(ctr, pts, r)
+    args = (ctr, pts, r, ptr, idx)
+    feats = torch.ones(pts.shape[:2] + (3,), device=cuda)
+    w, bias = (torch.zeros(27, 3, 4, device=cuda),
+               torch.zeros(4, device=cuda))
+    tk.reset_launches()
+    cnt, again = tk.conv_counts(*args), tk.conv_counts(*args)
+    _, own = tk.conv_fwd(ctr, pts, feats, w, bias, r, ptr, idx)
+    plain = tk.conv_counts_plain(*args)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["counts_csr" if csr else "counts_dense"] == 2
+    assert cnt.sum() > 0
+    assert torch.equal(cnt, again)
+    assert torch.equal(cnt, plain) and torch.equal(cnt, own)
+    real = ctr[..., 0] > -tk.SENTINEL / 2
+    assert float(cnt[~real].abs().sum()) == 0.0
+    if case == "empty_row":
+        n = (ptr[1:] - ptr[:-1]).view(2, 2)
+        assert bool((n[:, 1] == 0).all()) and bool((n[:, 0] > 0).all())
+        assert float(cnt[:, 64:].sum()) == 0.0
+    if case == "masked_padded":
+        assert bool((~real).any())
+    if case == "over_65535":
+        assert bool((cnt[..., 13] == 70016).all())
+        assert float(cnt.sum()) == 64 * 70016
+
+
 def _ext_inputs(p, precision, csr, half):
     """Kernel inputs of the candidates in ``half`` (a slice) against all
     centers, and the counts over every candidate."""

@@ -122,6 +122,20 @@ def test_step_window_times_and_traces_on_the_cpu():
         runtime.StepWindow("cpu", first=3, last=3, end=5)
 
 
+def test_step_window_op_total_matches_back_to_back_busy_time():
+    # three kernels back to back (ns 3133801, 554185, 4364019) over 6
+    # traced steps: their float seconds summed by name read above the
+    # union; the two totals must be equal
+    window = runtime.StepWindow("cpu", first=1, last=2, end=8)
+    window.marks = {1: 0.0, 2: 1.0, 8: 2.0}
+    events = [_event("a", 0.0, 3133.801), _event("b", 3133.801, 3687.986),
+              _event("c", 3687.986, 8052.005)]
+    window.prof = types.SimpleNamespace(events=lambda: events)
+    out = window.summary()
+    assert out["op_ms_per_step"] == out["device_ms_per_step"]
+    assert out["device_ms_per_step"] == 8052005 / 1e6 / 6
+
+
 def test_runtime_and_tools_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
