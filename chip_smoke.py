@@ -138,6 +138,14 @@ Phases, each printing one JSON line:
            at 200K points (device seconds > 0), sweep_seg_conv --quick and
            anchor_sweep at cls_synthetic_hard, 2 seeds x 20 steps (the
            path, not the accuracy);
+  bench    ``python -m pointwise_torch.bench`` in its own process from the
+           repo root, on the kernels built above (900 s limit): exit 0,
+           bench.py's four-key line last (its metric, a finite value >
+           0), its ``#`` diagnostics with every key of ``BENCH_KEYS`` (the
+           ``mfu_*`` keys too on a card of ``bench.PEAK_BF16``), no
+           ``*_error`` but ``tf_cpu_error`` (this machine has no
+           TensorFlow), and every forward, dW, dX and product kernel
+           launched in the bench's run;
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -162,7 +170,11 @@ After each phase a ``clock`` line gives its wall seconds.  Then the
 ``kernels`` line (thirteen kernels), the nvidia-smi line and, last, the
 result line.
 Any failure raises: the script exits non-zero and prints no result.  It
-imports nothing of JAX or of the JAX package.
+imports nothing of JAX or of the JAX package.  The reader of the JAX
+trainer's orbax checkpoints (``convert.read_jax_checkpoint``) does not run
+here: it needs ``tensorstore``, and JAX to write a checkpoint, and the card
+machine has neither; tests/test_torch_jax_checkpoint.py holds it to the
+JAX trainer's checkpoints on the CPU.
 """
 
 from __future__ import annotations
@@ -216,18 +228,22 @@ REMAT_RUNS = (("s3dis_synthetic_local", "layer", "csr"),
               ("s3dis_synthetic_local", "batch", "csr"),
               ("shapenetpart", "layer", "dense"),
               ("modelnet40_synthetic", "layer", "dense"))
+# the bench's process: its time limit, and the diagnostics it must print
+BENCH_TIMEOUT_S = 900
+BENCH_KEYS = ("device", "nvidia_smi", "torch", "cuda", "train_step_ms",
+              "train_pts_per_s", "device_peak_bf16_tf", "fwd_pts_per_s",
+              "fwdbwd_pts_per_s", "t_fwd_ms", "t_fwdbwd_ms",
+              "t_fwd_device_ms", "t_fwdbwd_device_ms", "t_fwd_wall_ms",
+              "t_fwdbwd_wall_ms", "precision", "mfu_fwd_measured",
+              "c64_fwd_pts_per_s", "c64_t_fwd_ms", "seg_step_ms",
+              "seg_pts_per_s", "seg_step_device_ms", "seg_pts_per_s_device",
+              "bwd_shape_canaries", "stream_pts_per_s", "stream_steady_s",
+              "stream_1m_pts_per_s", "stream_1m_steady_s", "launches",
+              "launches_by_arm", "max_memory_allocated_bytes")
 
 
 def emit(rec):
     print(json.dumps(rec), flush=True)
-
-
-def nvidia_smi_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def crafted_grid(radius, origin, n=7):
@@ -766,6 +782,7 @@ def phase_partseg(dev, workdir, steps=PARTSEG_STEPS):
 
     import torch
 
+    from pointwise_torch import convert
     from pointwise_torch import eval as evaluate
     from pointwise_torch.data import shapenetpart
     from pointwise_torch.infer import load_trained
@@ -818,7 +835,7 @@ def phase_partseg(dev, workdir, steps=PARTSEG_STEPS):
     # one test batch: the card's kernels against the plain versions on the
     # CPU, the same weights
     model = cli.build_partseg(cfg, data, "cpu")[0]
-    load_trained(model, ck)
+    load_trained(model, ck, convert.load_shapenetpart)
     cpu_model = copy.deepcopy(model).eval()
     card_model = model.to(dev).eval()
     test = shapenetpart.load_shapenetpart(None, "test", cfg.num_points,
@@ -988,6 +1005,57 @@ def phase_tools(dev):
           "wall_s": time.perf_counter() - t0, **anchor})
     if not all(0.0 <= v <= 1.0 for v in anchor["value_per_seed"]):
         raise AssertionError(f"anchor_sweep: {anchor}")
+
+
+def phase_bench(dev):
+    """``python -m pointwise_torch.bench`` in a process of its own from the
+    repo root (the kernels already built in kernels/_build/), within
+    ``BENCH_TIMEOUT_S``: exit 0, bench.py's four-key line last on stdout
+    (the metric, a finite value > 0), one ``#`` line on stderr holding
+    ``BENCH_KEYS`` (and the ``mfu_*`` keys on a card of
+    ``bench.PEAK_BF16``) with ``tf_cpu_error`` its only ``*_error``, and
+    every forward, dW, dX and product kernel launched in the run."""
+    import gc
+
+    import torch
+
+    from pointwise_torch import bench
+
+    gc.collect()
+    torch.cuda.empty_cache()       # the earlier phases' cached blocks
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "pointwise_torch.bench"],
+                         cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True,
+                         timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"the bench exited {out.returncode}:\n"
+                             + out.stderr[-4000:])
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    diag = [ln for ln in out.stderr.splitlines() if ln.startswith("# {")]
+    diag = json.loads(diag[-1][2:]) if len(diag) == 1 else {}
+    emit({"phase": "bench", "wall_s": wall, "result": result,
+          "diagnostics": diag})
+    need = list(BENCH_KEYS)
+    if bench.peak_bf16(dev):
+        need += ["mfu_fwd", "mfu_fwdbwd", "seg_mfu", "c64_mfu_fwd"]
+    missing = [k for k in need if k not in diag]
+    errors = [k for k in diag if k.endswith("_error") and k != "tf_cpu_error"]
+    launched = diag.get("launches", {})
+    idle = [k for k in ("fwd_dense", "fwd_csr", "fwd_product", "dw_dense",
+                        "dw_csr", "dw_product", "dx_dense", "dx_csr",
+                        "dx_product") if launched.get(k, 0) <= 0]
+    if not (list(result) == ["metric", "value", "unit", "vs_baseline"]
+            and result["metric"] == bench.METRIC
+            and isinstance(result["value"], int)
+            and math.isfinite(result["value"]) and result["value"] > 0
+            and not missing and not errors and not idle
+            and diag.get("bwd_shape_canaries") == "ok"
+            # the TF arm gives its rate or says why it could not
+            and ("tf_cpu_error" in diag) != ("tf_cpu_op_pts_per_s" in diag)):
+        raise AssertionError(f"bench: result {result}, missing {missing}, "
+                             f"errors {errors}, kernels not launched {idle}")
 
 
 def phase_eval(dev, ckpts):
@@ -1951,6 +2019,8 @@ def main():
         print(f"chip_smoke: the pointwise_torch package is missing ({e})",
               file=sys.stderr)
         return 1
+    from pointwise_torch.utils.runtime import nvidia_smi_line
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
@@ -2015,6 +2085,7 @@ def main():
               replies)
     phase("subblock", phase_subblock, dev)
     phase("tools", phase_tools, dev)
+    phase("bench", phase_bench, dev)
     t0 = time.perf_counter()
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))

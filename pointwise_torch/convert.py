@@ -19,12 +19,25 @@ flattened path ("params/PointwiseConvBlock_0/PointwiseConv_0/kernel").
       segmenter Dense_0 is the category embedding (flax names it first) ->
       embed.*, and the head starts at Dense_1
 
+``read_jax_checkpoint`` reads those variables from a checkpoint of the JAX
+trainer (``pointwise_tpu/train/trainer.py``'s ``save_checkpoint``: orbax
+``StandardSave`` of {step, params, opt_state, model_state, extra}).  A
+committed step is a numbered directory holding ``_CHECKPOINT_METADATA``;
+its ``default/`` is an OCDBT key-value store of one zarr array per leaf,
+keyed by the leaf's path joined with "." (``params.Dense_0.kernel``), and
+``default/_METADATA`` (JSON) lists the paths under ``tree_metadata``.  The
+chunks are compressed, so the reader goes through ``tensorstore``
+(imported in the function); orbax and JAX are never imported.
+
 No flax import: only numpy arrays cross over.
 """
 
 from __future__ import annotations
 
+import ast
 import functools
+import json
+import os
 import re
 from typing import Mapping, Sequence
 
@@ -119,6 +132,76 @@ def load_classifier(model: torch.nn.Module, variables: Mapping) -> None:
 def load_shapenetpart(model: torch.nn.Module, variables: Mapping) -> None:
     """Load JAX part-segmenter variables into ``model`` (strict)."""
     model.load_state_dict(shapenetpart_state_dict(variables), strict=True)
+
+
+def jax_checkpoint_steps(directory: str) -> list:
+    """Committed steps of the JAX trainer's orbax checkpoints in
+    ``directory``, ascending: numbered directories holding
+    ``_CHECKPOINT_METADATA`` (orbax's ``*.orbax-checkpoint-tmp-*``
+    directories and steps cut off before their commit are left out)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(e) for e in os.listdir(directory) if e.isdigit()
+                  and os.path.isfile(os.path.join(directory, e,
+                                                  "_CHECKPOINT_METADATA")))
+
+
+def numbered_dirs(directory: str) -> list:
+    """The numbered subdirectories of ``directory`` (orbax step
+    directories, committed or not)."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(e for e in os.listdir(directory)
+                  if e.isdigit() and os.path.isdir(os.path.join(directory, e)))
+
+
+# leaf paths of the JAX payload the nets need: the parameters and
+# BatchNorm's running averages (the trainer's model_state is batch_stats)
+_JAX_COLLECTIONS = {"params": "params", "model_state": "batch_stats"}
+
+
+def read_jax_checkpoint(directory: str, step: int | None = None):
+    """(step, variables) of the newest committed orbax step of a JAX
+    trainer run in ``directory`` (or of ``step``).  ``variables`` is flat
+    and "/"-keyed, {"params/...": array, "batch_stats/...": array}, the
+    form the loaders above take; the optimizer state, step counter and
+    loop state are not read.  Needs ``tensorstore``."""
+    steps = jax_checkpoint_steps(directory)
+    if step is None and steps:
+        step = steps[-1]
+    if step not in steps:
+        raise FileNotFoundError(
+            f"{directory}: no committed orbax checkpoint step"
+            f"{'' if step is None else f' {step}'} of the JAX trainer (a "
+            "numbered directory holding _CHECKPOINT_METADATA; committed: "
+            f"{steps})")
+    try:
+        import tensorstore as ts
+    except ImportError as e:
+        raise ImportError(
+            "reading an orbax checkpoint of the JAX trainer needs the "
+            "tensorstore package (installed wherever the JAX trainer ran); "
+            "there, python -m pointwise_torch.tools.export_checkpoint "
+            f"{directory} weights.npz writes the weights for --params") from e
+    root = os.path.join(os.path.abspath(directory), str(step), "default")
+    with open(os.path.join(root, "_METADATA")) as f:
+        meta = json.load(f)
+    if not meta.get("use_ocdbt"):
+        raise ValueError(f"{root}: not an OCDBT checkpoint (use_ocdbt is "
+                         "false); only the OCDBT layout is read")
+    driver = "zarr3" if meta.get("use_zarr3") else "zarr"
+    base = "file://" + root + "/"
+    variables = {}
+    for path in meta["tree_metadata"]:
+        keys = ast.literal_eval(path)
+        if keys[0] not in _JAX_COLLECTIONS:
+            continue
+        spec = {"driver": driver, "kvstore": {
+            "driver": "ocdbt", "base": base, "path": ".".join(keys) + "/"}}
+        arr = ts.open(spec, open=True).result().read().result()
+        name = "/".join([_JAX_COLLECTIONS[keys[0]], *keys[1:]])
+        variables[name] = np.asarray(arr)
+    return step, variables
 
 
 def random_segmenter_params(in_features: int, num_classes: int, *,

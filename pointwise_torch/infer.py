@@ -18,8 +18,10 @@ launcher ``--dp`` runs as one rank.  Every rank loads the scene and builds
 the same schedule; only rank 0 prints, replies and writes.
 
 Weights: ``--checkpoint-dir`` names a directory of the port's training
-checkpoints (``python -m pointwise_torch.train --checkpoint-dir``; the
-newest is served); ``--params`` names an ``.npz`` of JAX-layout arrays keyed
+checkpoints (``python -m pointwise_torch.train --checkpoint-dir``) or of
+the JAX trainer's orbax checkpoints (``train.py --checkpoint-dir``; read
+with ``tensorstore``, see ``convert.read_jax_checkpoint``); the newest is
+served.  ``--params`` names an ``.npz`` of JAX-layout arrays keyed
 by flattened parameter path (see convert.py); with neither the weights are
 random, made from a numpy seed.
 """
@@ -28,6 +30,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import sys
@@ -37,7 +40,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pointwise_torch.convert import load_segmenter, random_segmenter_params
+from pointwise_torch.convert import (load_segmenter, numbered_dirs,
+                                     random_segmenter_params,
+                                     read_jax_checkpoint)
 from pointwise_torch.data import s3dis, synthetic
 from pointwise_torch.kernels import pointwise_conv_cuda as _kernels
 from pointwise_torch.models import PointwiseSegmenter
@@ -116,22 +121,25 @@ def save_profiles(path, profiles):
                   f)
 
 
-def load_trained(model, checkpoint_dir) -> int:
-    """Load the newest trainer checkpoint of ``checkpoint_dir`` into
-    ``model``; returns its step.  The JAX package's orbax checkpoints
-    (numbered step directories) are not readable here and say so."""
-    if not checkpoint_steps(checkpoint_dir):
-        if os.path.isdir(checkpoint_dir) and any(
-                e.isdigit() and os.path.isdir(os.path.join(checkpoint_dir, e))
-                for e in os.listdir(checkpoint_dir)):
-            raise NotImplementedError(
-                f"{checkpoint_dir}: orbax checkpoints of the JAX package are "
-                "not yet ported (export the params to an .npz and pass "
-                "--params)")
-        raise FileNotFoundError(f"no trainer checkpoint in {checkpoint_dir}")
-    state = load_checkpoint(checkpoint_dir, map_location="cpu")
-    model.load_state_dict(state["model"], strict=True)
-    return int(state["step"])
+def load_trained(model, checkpoint_dir, load_jax) -> int:
+    """Load the newest checkpoint of ``checkpoint_dir`` into ``model``;
+    returns its step.  The port's trainer checkpoints come first; a
+    directory of the JAX trainer's orbax steps (``train.py
+    --checkpoint-dir``) is read by ``convert.read_jax_checkpoint``
+    (``tensorstore``) and loaded through ``load_jax``, a convert.py
+    loader."""
+    if checkpoint_steps(checkpoint_dir):
+        state = load_checkpoint(checkpoint_dir, map_location="cpu")
+        model.load_state_dict(state["model"], strict=True)
+        return int(state["step"])
+    if not numbered_dirs(checkpoint_dir):
+        raise FileNotFoundError(
+            f"no checkpoint in {checkpoint_dir}: neither the port's trainer "
+            "checkpoints (ckpt_<step>.pt) nor orbax step directories of the "
+            "JAX trainer")
+    step, variables = read_jax_checkpoint(checkpoint_dir)
+    load_jax(model, variables)
+    return step
 
 
 def load_weights(model, load_jax, checkpoint_dir=None,
@@ -142,7 +150,7 @@ def load_weights(model, load_jax, checkpoint_dir=None,
     if checkpoint_dir and params_path:
         raise ValueError("pass --checkpoint-dir or --params, not both")
     if checkpoint_dir:
-        step = load_trained(model, checkpoint_dir)
+        step = load_trained(model, checkpoint_dir, load_jax)
         return f"restored step {step} from {checkpoint_dir}"
     if params_path:
         with np.load(params_path) as z:
@@ -152,17 +160,21 @@ def load_weights(model, load_jax, checkpoint_dir=None,
 
 
 def build_model(cfg, device, params_path=None, precision="bfloat16",
-                seed=0, checkpoint_dir=None):
+                seed=0, checkpoint_dir=None, report=None):
     """The locality-only segmenter of ``cfg`` on ``device`` (eval mode),
-    with weights from the newest trainer checkpoint of ``checkpoint_dir``,
-    a JAX-layout ``.npz`` or random from ``seed``."""
+    with weights from the newest checkpoint of ``checkpoint_dir`` (the
+    port's or the JAX trainer's), a JAX-layout ``.npz`` or random from
+    ``seed``; ``report(line)`` is told what was loaded."""
     model = PointwiseSegmenter(
         num_classes=cfg.num_classes, in_features=cfg.in_features,
         channels=cfg.channels, radii=cfg.radii, head_dims=cfg.head_dims,
         dropout_rate=cfg.dropout, norm=cfg.norm, impl=cfg.impl,
         precision=precision, use_global_context=False,  # locality => exact
         device=device)
-    if not load_weights(model, load_segmenter, checkpoint_dir, params_path):
+    src = load_weights(model, load_segmenter, checkpoint_dir, params_path)
+    if src and report is not None:
+        report(f"# {src}")
+    if not src:
         load_segmenter(model, random_segmenter_params(
             cfg.in_features, cfg.num_classes, channels=cfg.channels,
             head_dims=cfg.head_dims, norm=cfg.norm, seed=seed))
@@ -396,7 +408,9 @@ def main(argv=None, mesh=None, requests=None, emit=None):
     if args.norm:
         cfg = dataclasses.replace(cfg, norm=args.norm)
     model = build_model(cfg, device, args.params,
-                        checkpoint_dir=args.checkpoint_dir)
+                        checkpoint_dir=args.checkpoint_dir,
+                        report=functools.partial(print, flush=True)
+                        if lead else None)
     if mesh is not None and lead:
         print(f"# tile batches over data:{mesh.data}"
               + (f", scene rows over space:{mesh.space}"

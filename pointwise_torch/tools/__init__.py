@@ -6,7 +6,10 @@ PyTorch path, where every device number is "not measured"):
   attribute_streaming   a served scene split into host phases and device time
   sweep_seg_conv        forward, dW and dX per layer at the segmentation shapes
   anchor_sweep          the seed-averaged train-then-eval anchor protocol
+  export_checkpoint     a JAX trainer checkpoint's weights as an .npz for
+                        --params (CPU only; needs tensorstore)
 
-Ports of the scripts of the same names in scripts/.  The other scripts
-there tune Pallas tiles or VMEM and have no counterpart on the card.
+The first four are ports of the scripts of the same names in scripts/.  The
+other scripts there tune Pallas tiles or VMEM and have no counterpart on
+the card.
 """

@@ -12,8 +12,9 @@ A port of pointwise_tpu/train/trainer.py:
     through ``PointwiseConvFunction``), clip, update; ``evaluate`` returns
     mask-weighted means over batches;
   * checkpoints keep the newest ``keep`` files of {step, model, optimizer,
-    extra} (``torch.save``; the JAX package's orbax checkpoints are not
-    read);
+    extra} (``torch.save``).  A run of the JAX trainer (orbax step
+    directories) is not resumed: its optimizer state and PRNG keys have no
+    counterpart here (infer and eval read its weights);
   * ``log_metrics`` prints one JSON line per record and, through a
     ``SummaryWriter``, logs its metrics as TensorBoard scalars.
 
@@ -54,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pointwise_torch.convert import numbered_dirs
 from pointwise_torch.parallel.mesh import all_reduce, broadcast_, shard_batch
 from pointwise_torch.train.configs import OptimizerConfig
 
@@ -281,11 +283,19 @@ class Trainer:
     def restore_checkpoint(self, directory: str,
                            step: int | None = None) -> int:
         """Load the newest checkpoint (or ``step``); returns its step, 0
-        when the directory holds none.  The saved ``extra`` lands in
+        when the directory holds none; refuses a directory of the JAX
+        trainer's orbax steps (``ValueError``).  The saved ``extra`` lands in
         ``restored_extra``."""
         self.restored_extra = None
         steps = checkpoint_steps(directory)
         if step is None and not steps:
+            if numbered_dirs(directory):
+                raise ValueError(
+                    f"{directory} holds orbax checkpoints of the JAX trainer "
+                    "and none of the port's: the JAX optimizer state and "
+                    "PRNG keys do not carry over to the port's trainer, so "
+                    "its run is not resumed here (train.py resumes it; "
+                    "infer and eval --checkpoint-dir read its weights)")
             return 0
         state = load_checkpoint(directory, step, map_location=self.device)
         self.model.load_state_dict(state["model"])

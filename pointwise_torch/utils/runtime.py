@@ -24,6 +24,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import os
+import subprocess
 import time
 
 import torch
@@ -40,6 +41,17 @@ KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "FwdProduct"),
                    ("dx_product", "DxProduct"),
                    ("counts", "pw_counts_kernel"))
 NOT_MEASURED = "not measured"
+
+
+def nvidia_smi_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (its
+    first line: the first card)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def _first_tensor(x):

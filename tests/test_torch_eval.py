@@ -146,8 +146,9 @@ def test_shapenetpart_matches_jax(jax_eval, monkeypatch, capsys, tmp_path):
 
 def test_checkpoint_of_the_train_cli_evaluates(tmp_path, capsys):
     # a --norm batch checkpoint of the port's trainer evaluates with its
-    # running averages; an orbax directory is refused; both sources at once
-    # are refused
+    # running averages; a numbered directory orbax never committed is
+    # refused (committed JAX checkpoints are scored:
+    # test_torch_jax_checkpoint.py); both sources at once are refused
     from pointwise_torch.train.cli import main as train
 
     ck = os.fspath(tmp_path / "ck")
@@ -165,7 +166,7 @@ def test_checkpoint_of_the_train_cli_evaluates(tmp_path, capsys):
     assert rec["metric"] == "segmentation" and 0 <= rec["accuracy"] <= 1
     orbax = tmp_path / "orbax"
     (orbax / "100").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(FileNotFoundError, match=f"{orbax}.*orbax"):
         port_eval.main(["--config", "seg_tiny_stream", "--device", "cpu",
                         "--checkpoint-dir", os.fspath(orbax)])
     with pytest.raises(ValueError, match="not both"):

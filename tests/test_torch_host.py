@@ -108,7 +108,8 @@ def test_numpy_fallback_matches_native():
 
 def test_port_imports_no_jax():
     # a subprocess that blocks jax imports the port's entry modules; no jax,
-    # flax or pointwise_tpu module may load
+    # flax or pointwise_tpu module may load, nor tensorstore (the orbax
+    # reader imports it only when it reads)
     code = (
         "import sys\n"
         "class Block:\n"
@@ -122,12 +123,14 @@ def test_port_imports_no_jax():
         "pointwise_torch.streaming, pointwise_torch.convert, "
         "pointwise_torch.train.cli, pointwise_torch.train.trainer, "
         "pointwise_torch.models.classifier, pointwise_torch.data.augment, "
-        "pointwise_torch.data.modelnet, pointwise_torch.data.pipeline\n"
+        "pointwise_torch.data.modelnet, pointwise_torch.data.pipeline, "
+        "pointwise_torch.bench, pointwise_torch.tools.export_checkpoint\n"
         "import runpy\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'pointwise_tpu'))\n"
         "assert not bad, bad\n"
+        "assert 'tensorstore' not in sys.modules\n"
         "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
