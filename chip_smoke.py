@@ -7,7 +7,10 @@ Phases, each printing one JSON line:
   device   the card's name, count and power limit (nvidia-smi);
   build    nvcc builds the forward, dW, dX and counts kernels from
            kernels/csrc/ (first use; one nvcc per source, all started
-           together);
+           together); the line gives ptxas's registers, stack and spills
+           of every kernel and, per N tile, the product kernel's
+           registers, spills, dynamic shared memory and any note on
+           setmaxnreg;
   parity   kernel vs its plain PyTorch version on the card, dense and CSR
            walks, f32 and bf16, B=4, p=4096/8192, Cin=6/124, Cout=124,
            centers != candidates, masked centers, sentinel padding and a
@@ -159,7 +162,14 @@ Phases, each printing one JSON line:
            means walk and product, dX's sums walk and product, each
            product's own rows against its plain version).  Each product row
            has the ms of one PyTorch call of the same function beside it
-           (``library_ms``; cuBLAS, never called by the port).  The counts
+           (``library_ms``; cuBLAS, never called by the port; both over
+           20 calls: a product runs for about a tenth of a millisecond,
+           and one stall of the host would move a mean of 5); the
+           forward's and dX's also the TMA / wgmma kernel's tile (rows x N,
+           stages, cluster, grid), the bytes of W its tiles read from L2
+           (``product_plan``) and the row-shard check: the product of rows
+           64.. equal bit for bit to the same rows of the whole product.
+           The counts
            kernel at the shapes of the spatial phase's rings (CSR: 8 x 2048
            centers of 8 x 4096 candidates; dense: 32 x 512 of 32 x 1024)
            equal to its plain version and to itself launched again, bit for
@@ -209,6 +219,8 @@ KERNELS = {     # name: (the TPU kernel it replaces, its source here)
     "fwd_ext_dense": (f"{_PALLAS}:1366", f"{_CSRC}/pointwise_conv_fwd.cu"),
     "fwd_ext_csr": (f"{_PALLAS}:1366", f"{_CSRC}/pointwise_conv_fwd.cu"),
 }
+# calls per CUDA-event timing of a product and of its library call
+PRODUCT_REPS = 20
 # f32 operations per candidate a counts walk tests: 3 subtractions, 3
 # multiplications and 2 additions for the squared distance, 1 comparison
 COUNTS_OPS_PER_PAIR = 9
@@ -1777,26 +1789,73 @@ def library_dx_product(z, w):
     return _mm_f32(z, w.transpose(1, 2).reshape(-1, w.shape[1]))
 
 
+def product_build_report(tk):
+    """ptxas's report of each bf16 product kernel (tag, N tile, registers,
+    stack, spills, static shared memory, notes on setmaxnreg) with the
+    dynamic shared memory its tile takes (``product_plan``)."""
+    import re
+
+    out = []
+    for k in tk.ptxas_kernels(tk.LIBRARY["ptxas"], "pw_product_kernel"):
+        bn = int(re.search(r"ELi(\d+)EE", k["kernel"])[1])
+        tag = "FwdProduct" if "FwdProduct" in k["kernel"] else "DxProduct"
+        out.append(dict(tag=tag, bn=bn, dynamic_smem=tk.product_plan(
+            64, bn, 64, 1)["smem"], **{key: v for key, v in k.items()
+                                        if key != "kernel"}))
+    if len(out) != 2 * len(tk.PRODUCT_BN):
+        raise AssertionError(f"ptxas reported {len(out)} product kernels, "
+                             f"not {2 * len(tk.PRODUCT_BN)}")
+    return out
+
+
+def product_design(fn, args):
+    """The bf16 product's tile at these operands (rows x N, stages,
+    cluster, the persistent grid) and the bytes of W its tiles read from
+    L2 (``product_plan``), and the row-shard check: ``fn`` on rows 64.. of
+    the A operand equals rows 64.. of ``fn`` on all of it, bit for bit
+    (the serving mesh's row shards rest on it)."""
+    import torch
+
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    a = args[0]
+    whole, shard = fn(*args), fn(a[64:], *args[1:])
+    torch.cuda.synchronize()
+    plan = tk.product_plan(a.shape[0], whole.shape[1], a.shape[1],
+                           torch.cuda.get_device_properties(
+                               a.device).multi_processor_count)
+    same = bool(torch.equal(whole[64:], shard))
+    if not same:
+        raise AssertionError(f"a row shard's product differs: {fn.__name__} "
+                             f"of {tuple(a.shape)}")
+    return dict(tile={k: plan[k] for k in ("bm", "bn", "stages", "cluster",
+                                           "grid")},
+                w_l2_bytes=plan["w_l2_bytes"], shard_identical=same)
+
+
 def _time_row(name, layer, mod, kw, fn, plain, args, inputs, pairs, width,
               rows, library=None, **extra):
     """One kernel call at a recorded shape: its output against the plain
     version's, CUDA-event ms (5 launches after one warm-up), the plain
     version's ms (one call), the bound and, where ``library`` (see
     ``library_product``) is given, the ms of its PyTorch call of the same
-    function (5 calls after one warm-up) and its error against the plain
-    version."""
+    function and its error against the plain version.  A product (a row
+    with a library call) runs for about a tenth of a millisecond, so one
+    stall of the host between launches would move a mean of 5: its ms and
+    the library's are over ``PRODUCT_REPS`` calls."""
     import torch
 
     out, ref = fn(*args), plain(*args)
     first = (lambda o: o[0]) if isinstance(out, tuple) else (lambda o: o)
     err, ok = (compare if name.startswith("fwd") else compare_grad)(
         first(out), first(ref), mod.precision)
-    ms = cuda_time_ms(lambda: fn(*args), reps=5)
+    reps = 5 if library is None else PRODUCT_REPS
+    ms = cuda_time_ms(lambda: fn(*args), reps=reps)
     plain_ms = cuda_time_ms(lambda: plain(*args), reps=1, warmup=0)
     if library is not None:
         call, extra["library_call"] = library(*args)
         extra["library_err"], _ = compare(call(), first(ref), mod.precision)
-        extra["library_ms"] = cuda_time_ms(call, reps=5)
+        extra["library_ms"] = cuda_time_ms(call, reps=reps)
     cin, cout = kw["w"].shape[1], kw["w"].shape[2]
     bound_ms, bound_by, nbytes = bound(
         inputs, list(out) if isinstance(out, tuple) else [out], pairs, width,
@@ -1858,7 +1917,8 @@ def phase_times(calls, per_step, **tag):
                                       tk.conv_fwd_product_plain, pa,
                                       list(pa), 0.0, 0, centers_n,
                                       library=library_product, walk=walk,
-                                      **tag))
+                                      **product_design(tk.conv_fwd_product,
+                                                       pa), **tag))
                 continue
             dw_args, dx_args = grad_inputs(kw, seed=layer, nc=nc)
             pairs = float(dw_args[4].sum())
@@ -1894,11 +1954,13 @@ def phase_times(calls, per_step, **tag):
                     ("dx_product", tk.conv_dx_product,
                      tk.conv_dx_product_plain, (z, w), cands_n,
                      library_dx_product, f"dx_{walk}")):
+                design = (product_design(fn, a) if kname == "dx_product"
+                          else {})
                 rows.append(_time_row(
                     kname, layer, mod, kw, fn, plain, a, list(a), 0.0, 0, n,
                     library=lib, walk=walk,
                     launches_per_step=per_step.get((walk_name, layer), 0.0),
-                    **tag))
+                    **design, **tag))
     return rows
 
 
@@ -2043,7 +2105,8 @@ def main():
     tk.build_libraries()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "ptxas": [ln.strip() for ln in tk.LIBRARY["ptxas"].splitlines()
-                    if "registers" in ln or "spill" in ln or "smem" in ln]})
+                    if "registers" in ln or "spill" in ln or "smem" in ln],
+          "product": product_build_report(tk)})
     phase("parity", phase_parity, dev)
     phase("grad", phase_grad, dev)
     phase("ext", phase_ext, dev)
@@ -2114,7 +2177,8 @@ def main():
             "library_ms": top.get("library_ms"), "shape": top["shape"],
             "layer": top["layer"], "precision": top["precision"],
             **{k: top[k] for k in ("walk_ms", "product_ms", "walk",
-                                   "library_call") if k in top}})
+                                   "library_call", "tile", "w_l2_bytes")
+               if k in top}})
     idle = [k["name"] for k in kernels if k["launches"] <= 0]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: "

@@ -27,8 +27,9 @@
 //       16 block.  The sums Z are rounded to the matmul type into a
 //       workspace (B*Mp rows, row stride ldz >= 27*Cout, a multiple of 8);
 //   the product (pointwise_conv_product.cuh, tag DxProduct), _dx_finalize's:
-//       dx = round(Z) . W^T, (rows x 27*Cout) x (27*Cout x Cin), on tensor
-//       cores in bf16 (f32 FMAs in f32 mode), no bias.
+//       dx = round(Z) . W^T, (rows x 27*Cout) x (27*Cout x Cin), the
+//       forward's TMA / wgmma kernel in bf16 (f32 FMAs in f32 mode), no
+//       bias.
 //
 // The cell code is pair_code(candidate, center), the forward's operands,
 // so pairs at exactly r and on cell faces route gradient through exactly
@@ -106,13 +107,17 @@ int pw_conv_dx_sums(const void* pts, const void* ctr, const void* g, const void*
 }
 
 // dx (rows, cin) f32 = z (rows, ldz; K = 27*cout columns read) . wt, wt
-// (K, ldw) = W^T per cell.  rows a multiple of 64.  bf16 != 0: z and wt
-// bf16, ldz and ldw multiples of 8, wt zero past cin; else f32, ldw = cin.
-// Returns the cudaError_t of the launch (0 = launched).
-int pw_conv_dx_product(const void* z, int ldz, const void* wt, int ldw, void* dx, int rows,
-                       int K, int cin, int bf16, void* stream) {
-  return launch_product<DxProduct>(z, ldz, wt, ldw, nullptr, static_cast<float*>(dx), rows, K,
-                                   cin, bf16, static_cast<cudaStream_t>(stream));
+// (K, cin) = W^T per cell.  rows a multiple of 64.  bf16 != 0: z bf16 at a
+// 16-byte aligned address, ldz a multiple of 8; w = wt^T (cin, ldw) bf16,
+// ldw a multiple of 8; bn, bm, stages and grid as the forward's.  Else
+// f32, w = wt, ldw = cin.  Returns the cudaError_t of the launch (0 =
+// launched), or minus the CUresult of a failed tensor-map encode.
+int pw_conv_dx_product(const void* z, int ldz, const void* w, int ldw, void* dx, int rows,
+                       int K, int cin, int bf16, int bn, int bm, int stages, int grid,
+                       void* stream) {
+  return launch_product<DxProduct>(z, ldz, w, ldw, nullptr, static_cast<float*>(dx), rows, K,
+                                   cin, bf16, bn, bm, stages, grid,
+                                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

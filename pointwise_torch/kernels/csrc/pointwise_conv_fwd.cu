@@ -19,9 +19,10 @@
 //       (B*Ncp rows, row stride ldx >= 27*Cin, a multiple of 8);
 //   the product (pointwise_conv_product.cuh, shared with dX),
 //       _finalize_tile's product (:297): y = xbar . W + bias, (rows x
-//       27*Cin) x (27*Cin x Cout), on tensor cores (mma.sync, cp.async
-//       double-buffered, 64 centers x 128 outputs per CTA), the bias added
-//       in f32 after the sum.  W is read from L2 once per 64 centers.
+//       27*Cin) x (27*Cin x Cout), on tensor cores (TMA into an mbarrier
+//       ring, wgmma, a persistent grid; 256 centers x 128 outputs per tile
+//       at Cout 124), the bias added in f32 after the sum.  W is read from
+//       L2 once per tile.
 //
 // Every output row is owned by one thread per column and every sum runs in
 // a fixed order: no atomics, so results repeat bit for bit from run to run,
@@ -33,8 +34,8 @@
 // and two barriers per iteration (the walk header's note).  The product:
 // the xbar workspace (27*Cin bf16 per center) read once from device memory
 // and 2*27*Cin*Cout flops per center at the tensor cores' rate.  Sharing
-// the codes across a center tile's CTAs (a cluster), fusing the product
-// into the walk, wgmma and a persistent schedule are later work.
+// the codes across a center tile's CTAs (a cluster) and fusing the product
+// into the walk are later work.
 //
 // External counts (replaces the ext-counts variants of the same three
 // kernels, pointwise_conv_pallas_ext :1366-1403, the cnt_in argument of
@@ -106,15 +107,17 @@ int pw_conv_fwd_means(const void* ctr, const void* pts, const void* feats, void*
 }
 
 // y (rows, cout) f32 = xbar (rows, ldx; K = 27*cin columns read) . w + bias.
-// rows a multiple of 64.  bf16 != 0: xbar and w bf16, ldx and ldw multiples
-// of 8, w (K, ldw) zero past cout; else f32, w (K, cout).  Returns the
-// cudaError_t of the launch (0 = launched).
+// rows a multiple of 64.  bf16 != 0: xbar bf16 at a 16-byte aligned
+// address, ldx a multiple of 8; w = W^T (cout, ldw) bf16, ldw a multiple of
+// 8; bn, bm, stages and grid the wrapper's plan (launch_product).  Else
+// f32, w (K, cout).  Returns the cudaError_t of the launch (0 = launched),
+// or minus the CUresult of a failed tensor-map encode.
 int pw_conv_fwd_product(const void* xbar, int ldx, const void* w, int ldw,
                         const void* bias, void* y, int rows, int K, int cout, int bf16,
-                        void* stream) {
+                        int bn, int bm, int stages, int grid, void* stream) {
   return launch_product<FwdProduct>(xbar, ldx, w, ldw, static_cast<const float*>(bias),
-                                    static_cast<float*>(y), rows, K, cout, bf16,
-                                    static_cast<cudaStream_t>(stream));
+                                    static_cast<float*>(y), rows, K, cout, bf16, bn, bm,
+                                    stages, grid, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@ launch failure raises.
       with ``cnt_in`` their external-counts variants
       (``pointwise_conv_pallas_ext``): the means walk ``conv_fwd_means``
       (csrc/pointwise_conv_walk.cuh, tensor cores) then the product
-      ``conv_fwd_product`` (``_finalize_tile``'s), each with its plain
-      version;
+      ``conv_fwd_product`` (``_finalize_tile``'s; csrc/
+      pointwise_conv_product.cuh, TMA, mbarriers and wgmma, its tiles from
+      ``product_plan``), each with its plain version;
   conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
       replacing the ``_dw_kernel*`` family: the forward's means walk
       dividing by the forward's counts ``conv_dw_means`` then the
@@ -63,6 +64,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -93,6 +95,19 @@ _HEADERS = ("pointwise_conv_common.cuh", "pointwise_conv_walk.cuh",
 MAX_WIDTH = 1024
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# after the source: the product encodes its TMA tensor maps through the
+# CUDA driver API's cuTensorMapEncodeTiled
+_NVCC_LIBS = ("-lcuda",)
+
+# The bf16 product's plan (csrc/pointwise_conv_product.cuh, GemmTile): its
+# N tiles, k-step, consumer warpgroups and the shared memory its ring may
+# fill.  product_plan mirrors the kernel's arithmetic; the kernel refuses a
+# launch whose row tile or stages differ from its own.
+PRODUCT_BN = (8, 16, 32, 64, 128, 256)
+_PRODUCT_BK = 64
+_PRODUCT_CONSUMERS = 2
+_PRODUCT_RING_BYTES = 230_400
+_PRODUCT_MAX_STAGES = 8
 
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
@@ -132,7 +147,7 @@ def _nvcc() -> str:
 
 
 def _so_path(src: str) -> str:
-    h = hashlib.sha1(" ".join(_NVCC_FLAGS).encode())
+    h = hashlib.sha1(" ".join(_NVCC_FLAGS + _NVCC_LIBS).encode())
     for name in (src, *_HEADERS):
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(f.read())
@@ -156,14 +171,15 @@ def build_libraries() -> dict:
         # temp file + atomic rename: a concurrent process never loads a
         # half-written library
         tmp = f"{so}.tmp.{os.getpid()}"
-        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src)]
+        cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, src),
+               *_NVCC_LIBS]
         procs.append((src, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    logs = []
+    logs = {}      # source: its compiler report, from this build or its log
     failed = []
     for src, so, tmp, p in procs:
         out, _ = p.communicate()
-        logs.append(out)
+        logs[src] = out
         if p.returncode != 0:
             failed.append(f"{src}:\n{out[-4000:]}")
             if os.path.exists(tmp):
@@ -176,15 +192,46 @@ def build_libraries() -> dict:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for src in _SOURCES:
         so = _so_path(src)
-        if not logs and os.path.exists(so + ".log"):
+        if src not in logs and os.path.exists(so + ".log"):
             with open(so + ".log") as f:
-                logs.append(f.read())
+                logs[src] = f.read()
         stem = os.path.splitext(src)[0]
         _libs[stem] = _bind(stem, ctypes.CDLL(so))
     LIBRARY["loads"] += 1
     LIBRARY["seconds"] += time.perf_counter() - t0
-    LIBRARY["ptxas"] = "".join(logs)
+    LIBRARY["ptxas"] = "".join(logs.get(src, "") for src in _SOURCES)
     return _libs
+
+
+def ptxas_kernels(log: str, match: str) -> list:
+    """The ptxas report (``LIBRARY["ptxas"]``) of each kernel whose mangled
+    name holds ``match``: {kernel, registers, static_smem, stack,
+    spill_stores, spill_loads} (bytes), and the report's lines about it
+    that name ``setmaxnreg``."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(kernel=m.group(1), notes=[]) if match in m.group(1) \
+                else None
+            if cur is not None:
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur.update(registers=int(m[1]),
+                       static_smem=int(sm[1]) if sm else 0)
+        if "setmaxnreg" in ln:
+            cur["notes"].append(ln.strip())
+    return out
 
 
 def _bind(stem: str, lib):
@@ -194,8 +241,8 @@ def _bind(stem: str, lib):
         lib.pw_conv_fwd_means.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci,
                                                                 vp]
         lib.pw_conv_fwd_means.restype = ci
-        lib.pw_conv_fwd_product.argtypes = [vp, ci, vp, ci, vp, vp] + [ci] * 4 \
-            + [vp]
+        lib.pw_conv_fwd_product.argtypes = [vp, ci, vp, ci, vp, vp] \
+            + [ci] * 8 + [vp]
         lib.pw_conv_fwd_product.restype = ci
         lib.pw_conv_smem_bytes.argtypes = [ci, ci]
         lib.pw_conv_smem_bytes.restype = ll
@@ -225,7 +272,7 @@ def _bind(stem: str, lib):
     else:
         lib.pw_conv_dx_sums.argtypes = [vp] * 9 + [ci] * 5 + [cf, cf, ci, vp]
         lib.pw_conv_dx_sums.restype = ci
-        lib.pw_conv_dx_product.argtypes = [vp, ci, vp, ci, vp] + [ci] * 4 \
+        lib.pw_conv_dx_product.argtypes = [vp, ci, vp, ci, vp] + [ci] * 8 \
             + [vp]
         lib.pw_conv_dx_product.restype = ci
         lib.pw_dx_smem_bytes.argtypes = [ci, ci]
@@ -345,6 +392,9 @@ def _ptr(t):
 
 
 def _launch(name, err):
+    if err < 0:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{-err}")
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
@@ -420,7 +470,8 @@ def conv_fwd_means(ctr, pts, feats, radius: float, tile_ptr=None,
 def _check_product(a, w, n_k: int, what: str):
     """The A operand of a product (rows, n_k) and the weights: same type,
     rows a multiple of TILE, unit column stride and, in bf16, a row stride
-    that is a multiple of 8 (16-byte rows for cp.async).  Returns bf16."""
+    that is a multiple of 8 and a 16-byte aligned address (a TMA tensor
+    map's).  Returns bf16."""
     rows = a.shape[0] if a.ndim == 2 else -1
     if w.ndim != 3 or w.shape[0] != N_CELLS or a.ndim != 2 \
             or a.shape[1] != n_k or rows % TILE:
@@ -431,36 +482,94 @@ def _check_product(a, w, n_k: int, what: str):
         raise TypeError(f"{what} and w must share float32 or bfloat16, got "
                         f"{a.dtype} and {w.dtype}")
     bf16 = int(w.dtype == torch.bfloat16)
-    if a.stride(1) != 1 or a.stride(0) % (8 if bf16 else 1):
+    if a.stride(1) != 1 or a.stride(0) % (8 if bf16 else 1) \
+            or (bf16 and a.data_ptr() % 16):
         raise ValueError(f"{what} rows must be contiguous, their stride a "
-                         f"multiple of 8 in bfloat16")
+                         f"multiple of 8 and their start 16-byte aligned in "
+                         f"bfloat16")
     _check_device([w], a.device)              # a's strides checked above
     return bf16
 
 
-def _product(stem, key, a, wk, bias):
-    """Launch the product kernel of library ``stem`` (forward or dX): y
-    (rows, N) f32 = a . wk (+ bias), wk (K, N) in a's type; its columns are
-    padded to a multiple of 8 in bf16."""
-    lib = build_libraries()[stem]
+def product_plan(rows: int, n: int, k: int, sms: int) -> dict:
+    """The bf16 product's tiles for y (rows, n) = a (rows, k) . w, as
+    csrc/pointwise_conv_product.cuh lays them out: the N tile ``bn`` (the
+    smallest of ``PRODUCT_BN`` that holds n, else 256 in ceil(n / 256)
+    tiles), the row tile ``bm`` (256 rows, two m64 sub-tiles per consumer
+    warpgroup, up to N = 128; 128 at N = 256), the ring's ``stages`` and the
+    kernel's dynamic shared memory ``smem``; the persistent ``grid`` (one
+    CTA per SM, at most one per tile) of ``sms`` SMs.  ``w_l2_bytes``: the
+    bytes of W the tiles read from L2 (each row tile reads all of W once;
+    the columns past n are filled, not read); ``a_l2_bytes``: A's (each N
+    tile reads all of A).  Nothing here changes a bit of the result: the
+    order of every sum depends on k alone."""
+    bn = next((b for b in PRODUCT_BN if b >= n), PRODUCT_BN[-1])
+    bm = 64 * (2 if bn <= 128 else 1) * _PRODUCT_CONSUMERS
+    stage = (bm + bn) * _PRODUCT_BK * 2
+    stages = min(_PRODUCT_MAX_STAGES, _PRODUCT_RING_BYTES // stage)
+    n_tiles = -(-n // bn)
+    row_tiles = -(-rows // bm)
+    tiles = row_tiles * n_tiles
+    return dict(bm=bm, bn=bn, stages=stages, cluster=1,
+                smem=1024 + stages * stage + 16 * stages, n_tiles=n_tiles,
+                row_tiles=row_tiles, tiles=tiles, grid=min(tiles, sms),
+                k_steps=-(-k // _PRODUCT_BK),
+                w_l2_bytes=row_tiles * k * n * 2,
+                a_l2_bytes=n_tiles * rows * k * 2)
+
+
+def product_operand(w, kind: str):
+    """The B operand the bf16 product reads for W (27, Cin, Cout): B^T,
+    K-major (N, round_up(K, 8)), so that wgmma reads both operands without the
+    transpose bit and a TMA box is 64 contiguous k of N columns.  ``fwd``:
+    W.reshape(27*Cin, Cout)^T (N = Cout); ``dx``: (W^T per cell)^T, W laid
+    out (Cin, 27*Cout) (N = Cin).  One copy of W per call (830 KB at 124
+    wide); the columns past K are never read (the tensor map ends at K) and
+    are left unset."""
+    if kind == "fwd":
+        src = w.reshape(-1, w.shape[2]).t()
+    else:
+        src = w.permute(1, 0, 2)
+    n, k = src.shape[0], src[0].numel()
+    out = w.new_empty((n, round_up(k, 8)))
+    out[:, :k].view(src.shape).copy_(src)
+    return out
+
+
+def _product(kind, a, w, bias):
+    """Launch the product kernel of ``kind`` (``fwd`` or ``dx``): y (rows,
+    N) f32 = a . B (+ bias), B = W.reshape(27*Cin, Cout) (fwd) or W^T per
+    cell (dx), in a's type.  bf16: the TMA / wgmma kernel on
+    ``product_operand`` with ``product_plan``'s tile and grid; f32: the
+    CUDA-core kernel on B (K, N).  No launch for zero rows."""
     rows, k = a.shape
-    n = wk.shape[1]
-    bf16 = int(wk.dtype == torch.bfloat16)
-    ldw = round_up(n, 8) if bf16 else n
-    wk = torch.nn.functional.pad(wk, (0, ldw - n)) if ldw != n \
-        else wk.contiguous()
+    n = w.shape[2] if kind == "fwd" else w.shape[1]
     y = torch.empty((rows, n), dtype=torch.float32, device=a.device)
+    if rows == 0:
+        return y
+    lib = build_libraries()[f"pointwise_conv_{kind}"]
+    bf16 = int(w.dtype == torch.bfloat16)
+    if bf16:
+        wk = product_operand(w, kind)
+        plan = product_plan(rows, n, k, torch.cuda.get_device_properties(
+            a.device).multi_processor_count)
+        tile = [plan[key] for key in ("bn", "bm", "stages", "grid")]
+    else:
+        wk = (w.reshape(k, n) if kind == "fwd"
+              else w.transpose(1, 2).reshape(k, n)).contiguous()
+        tile = [0, 0, 0, 0]
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if bias is not None:
+        if kind == "fwd":
             _launch("pw_conv_fwd_product", lib.pw_conv_fwd_product(
-                a.data_ptr(), a.stride(0), wk.data_ptr(), ldw,
-                bias.data_ptr(), y.data_ptr(), rows, k, n, bf16, stream))
+                a.data_ptr(), a.stride(0), wk.data_ptr(), wk.stride(0),
+                bias.data_ptr(), y.data_ptr(), rows, k, n, bf16, *tile,
+                stream))
         else:
             _launch("pw_conv_dx_product", lib.pw_conv_dx_product(
-                a.data_ptr(), a.stride(0), wk.data_ptr(), ldw, y.data_ptr(),
-                rows, k, n, bf16, stream))
-    LAUNCHES[key] += 1
+                a.data_ptr(), a.stride(0), wk.data_ptr(), wk.stride(0),
+                y.data_ptr(), rows, k, n, bf16, *tile, stream))
+    LAUNCHES[f"{kind}_product"] += 1
     return y
 
 
@@ -481,8 +590,7 @@ def conv_fwd_product(xbar, w, bias):
                          f"{tuple(bias.shape)}")
     _check_device([bias], xbar.device)
     _width(cin, cout)
-    return _product("pointwise_conv_fwd", "fwd_product", xbar,
-                    w.reshape(N_CELLS * cin, cout), bias)
+    return _product("fwd", xbar, w, bias)
 
 
 def conv_fwd(ctr, pts, feats, w, bias, radius: float, tile_ptr=None,
@@ -689,9 +797,7 @@ def conv_dx_product(z, w):
     if z.device.type != "cuda":
         raise ValueError(f"unsupported device {z.device}")
     _check_product(z, w, N_CELLS * w.shape[2], "z")
-    cin, cout = w.shape[1], w.shape[2]
-    wt = w.transpose(1, 2).reshape(N_CELLS * cout, cin)
-    return _product("pointwise_conv_dx", "dx_product", z, wt, None)
+    return _product("dx", z, w, None)
 
 
 def conv_dx(ctr, pts, g, cnt, w, radius: float, tile_ptr=None,

@@ -6,6 +6,7 @@ PyTorch path, where every device number is "not measured"):
   attribute_streaming   a served scene split into host phases and device time
   sweep_seg_conv        forward, dW and dX per layer at the segmentation shapes
   anchor_sweep          the seed-averaged train-then-eval anchor protocol
+  time_products         the forward's and dX's product kernels against cuBLAS
   export_checkpoint     a JAX trainer checkpoint's weights as an .npz for
                         --params (CPU only; needs tensorstore)
 

@@ -499,3 +499,43 @@ def test_dx_block_with_all_27_cells(cuda, precision):
     assert bool((cells > 0).all())                      # all 27 cells
     _close(z.float(), z_p.float(), precision)
     _close(dx, dx_p, precision)
+
+
+@pytest.mark.parametrize("rows", [64, 64 * 37])
+@pytest.mark.parametrize("k_width,n", [(3, 124), (6, 3), (124, 124),
+                                       (64, 64), (124, 128),
+                                       (tk.MAX_WIDTH, tk.MAX_WIDTH),
+                                       (tk.MAX_WIDTH, 3),
+                                       (3, tk.MAX_WIDTH)])
+@pytest.mark.parametrize("kind", ["fwd", "dx"])
+def test_product_kernel(cuda, kind, k_width, n, rows):
+    # the TMA / wgmma product alone, the forward's with a bias and dX's
+    # without: K = 27 x width past a multiple of 64 and up to MAX_WIDTH, N
+    # tiles from 8 to 4 x 256, less than one row tile and a partial last
+    # one, a row stride past K with NaN in the columns the kernel must not
+    # read; two runs and the product of rows 64.. (a row shard) identical
+    # bit for bit
+    rng = np.random.RandomState(7 * k_width + n + rows)
+    k = 27 * k_width
+    a = np.full((rows, tk.round_up(k, 8) + 8), np.nan, np.float32)
+    a[:, :k] = rng.standard_normal((rows, k))
+    a = torch.from_numpy(a).to(cuda).bfloat16()[:, :k]
+    cin, cout = (k_width, n) if kind == "fwd" else (n, k_width)
+    w = torch.from_numpy((rng.standard_normal((27, cin, cout))
+                          / np.sqrt(k)).astype(np.float32)).to(cuda).bfloat16()
+    if kind == "fwd":
+        bias = torch.from_numpy(
+            0.1 * rng.standard_normal(n).astype(np.float32)).to(cuda)
+        run = lambda x: tk.conv_fwd_product(x, w, bias)          # noqa
+        want = tk.conv_fwd_product_plain(a, w, bias)
+    else:
+        run = lambda x: tk.conv_dx_product(x, w)                 # noqa
+        want = tk.conv_dx_product_plain(a, w)
+    tk.reset_launches()
+    y, again, shard = run(a), run(a), run(a[64:])
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[f"{kind}_product"] == (3 if rows > 64 else 2)
+    assert y.shape == (rows, n) and bool(torch.isfinite(y).all())
+    assert torch.equal(y, again)
+    assert torch.equal(shard, y[64:])
+    _close(y, want, "float32")
