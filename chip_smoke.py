@@ -168,7 +168,10 @@ Phases, each printing one JSON line:
            forward's and dX's also the TMA / wgmma kernel's tile (rows x N,
            stages, cluster, grid), the bytes of W its tiles read from L2
            (``product_plan``) and the row-shard check: the product of rows
-           64.. equal bit for bit to the same rows of the whole product.
+           64.. equal bit for bit to the same rows of the whole product;
+           dW's its plan (tile, stages, the centers' slices and chunk, the
+           grid) and the bytes of its slices' partial sums
+           (``dw_product_plan``).
            The counts
            kernel at the shapes of the spatial phase's rings (CSR: 8 x 2048
            centers of 8 x 4096 candidates; dense: 32 x 512 of 32 x 1024)
@@ -210,7 +213,7 @@ KERNELS = {     # name: (the TPU kernel it replaces, its source here)
     "fwd_product": (f"{_PALLAS}:297", f"{_CSRC}/pointwise_conv_product.cuh"),
     "dw_dense": (f"{_PALLAS}:396", f"{_CSRC}/pointwise_conv_dw.cu"),
     "dw_csr": (f"{_PALLAS}:636", f"{_CSRC}/pointwise_conv_dw.cu"),
-    "dw_product": (f"{_PALLAS}:434", f"{_CSRC}/pointwise_conv_dw.cu"),
+    "dw_product": (f"{_PALLAS}:434", f"{_CSRC}/pointwise_conv_product.cuh"),
     "dx_dense": (f"{_PALLAS}:527", f"{_CSRC}/pointwise_conv_dx.cu"),
     "dx_csr": (f"{_PALLAS}:748", f"{_CSRC}/pointwise_conv_dx.cu"),
     "dx_product": (f"{_PALLAS}:476", f"{_CSRC}/pointwise_conv_product.cuh"),
@@ -1792,20 +1795,34 @@ def library_dx_product(z, w):
 def product_build_report(tk):
     """ptxas's report of each bf16 product kernel (tag, N tile, registers,
     stack, spills, static shared memory, notes on setmaxnreg) with the
-    dynamic shared memory its tile takes (``product_plan``)."""
+    dynamic shared memory its tile takes (``product_plan``): the forward's,
+    dX's and dW's (tags FwdProduct, DxProduct, DwProduct)."""
     import re
 
     out = []
     for k in tk.ptxas_kernels(tk.LIBRARY["ptxas"], "pw_product_kernel"):
         bn = int(re.search(r"ELi(\d+)EE", k["kernel"])[1])
-        tag = "FwdProduct" if "FwdProduct" in k["kernel"] else "DxProduct"
+        tag = re.search(r"(Fwd|Dx|Dw)Product", k["kernel"])[0]
         out.append(dict(tag=tag, bn=bn, dynamic_smem=tk.product_plan(
             64, bn, 64, 1)["smem"], **{key: v for key, v in k.items()
                                         if key != "kernel"}))
-    if len(out) != 2 * len(tk.PRODUCT_BN):
+    if len(out) != 3 * len(tk.PRODUCT_BN):
         raise AssertionError(f"ptxas reported {len(out)} product kernels, "
-                             f"not {2 * len(tk.PRODUCT_BN)}")
+                             f"not {3 * len(tk.PRODUCT_BN)}")
     return out
+
+
+def dw_design(xbar, g):
+    """dW's product plan at these operands (``dw_product_plan``: tile,
+    stages, the centers' slices, the persistent grid, the partial sums'
+    bytes)."""
+    from pointwise_torch.kernels import pointwise_conv_cuda as tk
+
+    plan = tk.dw_product_plan(*xbar.shape, g.shape[1],
+                              tk.sm_count(xbar.device))
+    return dict(tile={k: plan[k] for k in ("bm", "bn", "stages", "slices",
+                                           "chunk", "grid")},
+                part_bytes=plan["part_bytes"])
 
 
 def product_design(fn, args):
@@ -1955,7 +1972,7 @@ def phase_times(calls, per_step, **tag):
                      tk.conv_dx_product_plain, (z, w), cands_n,
                      library_dx_product, f"dx_{walk}")):
                 design = (product_design(fn, a) if kname == "dx_product"
-                          else {})
+                          else dw_design(*a))
                 rows.append(_time_row(
                     kname, layer, mod, kw, fn, plain, a, list(a), 0.0, 0, n,
                     library=lib, walk=walk,

@@ -5,6 +5,9 @@
 //                 the TPU's _pairwise_code (pointwise_conv_pallas.py:140).
 //   cp_async16    16 bytes global -> shared by cp.async, with its commit and
 //                 wait.
+//   mbar_*, tma_* the mbarrier and TMA (cp.async.bulk.tensor) helpers of the
+//                 products and the forward's walk, and encode_map, their 2-D
+//                 tensor maps.
 //
 // The tensor-core walk of the forward, dW and dX lives in
 // pointwise_conv_walk.cuh, the product of the forward and dX in
@@ -24,13 +27,16 @@
 
 #pragma once
 
+#include <cuda.h>   // CUtensorMap, cuTensorMapEncodeTiled (linked with -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace pw {
 
 constexpr int N_CELLS = 27;
 constexpr int TILE = 64;      // walk tile and row tile (points)
+constexpr int TMA_BOX_K = 64; // inner extent of a TMA box: 64 bf16, one 128-byte swizzle row
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -84,6 +90,68 @@ __device__ __forceinline__ int pair_code(float qx, float qy, float qz, float px,
            + axis_cell(rz, radius, inv);
   }
   return code;
+}
+
+// ---- mbarrier and TMA (PTX) ------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(unsigned bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Wait until the phase of parity ``parity`` of the barrier has completed.
+// A stage arrives within microseconds; a wait of 2^36 cycles (~35 s) can
+// only be a fault, and traps, so a broken ring fails its launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done = 0;
+  const long long t0 = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 36)) __trap();
+  }
+}
+// A 2-D box of the tensor map at (c0 innermost, c1) into shared memory,
+// completing its bytes on the barrier.
+__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// A 2-D bf16 tensor map over (outer, inner) with row stride ld elements
+// (a multiple of 8), boxes of TMA_BOX_K x box_outer, 128-byte swizzle, zeros
+// past the edges.  Returns the CUresult (0 = encoded).
+inline int encode_map(CUtensorMap* map, const void* base, int inner, int outer, int ld,
+                      int box_outer) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)TMA_BOX_K, (cuuint32_t)box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                     const_cast<void*>(base), dims, strides, box, elem,
+                                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 }  // namespace pw

@@ -10,46 +10,52 @@
 // cell means xbar recomputed by the forward's walk.  On the TPU the
 // (27, Cinp, Coutp) output block stays resident in VMEM while the grid runs
 // its center tiles in order; on the GPU blocks run in no order, so the work
-// splits in two kernels:
+// splits in two steps:
 //
-//   the means walk       the forward's (pointwise_conv_walk.cuh): 16
-//       centers per CTA walk every candidate tile or the CSR list and sum
-//       each cell's features on tensor cores (0/1 cell planes x features,
-//       mma.sync, empty cells skipped per 16 x 16 block); the sums are
-//       divided by the forward's counts (max(cnt, 1), f32) and rounded to
+//   the means walk   the forward's (pointwise_conv_walk.cuh, tag DwMeans),
+//       dividing by the forward's counts (max(cnt, 1), f32) and rounding to
 //       the matmul type into a workspace xbar (B*Ncp, 27*Cin);
-//   pw_dw_product_kernel (_dw_finalize's product, :434) dW = xbar^T .
-//       round(g) over all B*Ncp centers, on tensor cores: g is rounded to
-//       bf16 once per call (pw_dw_product_pack_kernel, rows padded to a
-//       multiple of 8 columns); a CTA owns 128 rows of dW (its 27*Cin
-//       index) x 128 columns (Cout), 8 warps of 32 x 64, and streams xbar
-//       and round(g) through shared memory in k-steps of 32 centers,
-//       double-buffered with cp.async.  xbar^T's A fragments come from the
-//       row-major xbar tile by ldmatrix.trans, round(g)'s B fragments by
-//       ldmatrix.trans as in the forward's product, into mma.sync.m16n8k16
-//       (bf16 in, f32 accumulate).  The centers split into S slices of
-//       `chunk` centers (S from the wrapper, so that enough CTAs fill the
-//       card); each slice writes its partial sums to a workspace and
-//       pw_dw_reduce_kernel adds the S partials in ascending slice order.
+//   the product      (_dw_finalize's, :434) dW = xbar^T . round(g) over all
+//       B*Ncp centers: the forward's TMA / mbarrier / wgmma kernel
+//       (pointwise_conv_product.cuh) under the tag DwProduct.
+//
+// What bounds the product on an H100: the bytes of xbar (219 MB in bf16 at
+// 8 x 4096 centers and Cin = 124), read once; its 2*27*Cin*Cout flops per
+// center take the tensor cores under half that time at Cout = 124.  The
+// output is small (27*Cin x Cout: 14 x 1 tiles of 256 x 128 at Cin = 124,
+// one at Cin = 6), so the centers split into slices to fill the SMs, and
+// the slices' partial sums (S x 27*Cin x Cout f32) are written and read once
+// more.  The design:
+//   - A = xbar^T is M-major (the 27*Cin index is contiguous in an xbar
+//     row): its tensor map runs over xbar {27*Cin, rows}, boxes of 64 rows
+//     of dW (128 bytes, the 128-byte swizzle) by 64 centers, four a stage
+//     for a 256-row tile; wgmma reads them with the transpose bit, a k16
+//     step 16 lines further.  The map ends at 27*Cin, so the workspace's
+//     garbage columns are never read, and TMA fills zeros past the last
+//     center.
+//   - B = round(g), written K-major by the pack kernel: gt (Cout, rows),
+//     centers contiguous, so B takes the forward's K-major descriptor and
+//     needs no transpose bit (the pack's transpose is one pass over g,
+//     through shared memory; B is read from L2 once per 256 rows of dW).
+//   - The plan (tile, stages, slices, chunk; dw_plan, mirrored by the
+//     wrapper's dw_product_plan) depends on (rows, 27*Cin, Cout) only: the
+//     slices aim at DW_UNITS work units, a fixed number, so dW's bits are
+//     the same on any card.  The persistent grid takes min(units, SMs) CTAs:
+//     no sum depends on which SM ran it.  The kernel refuses a plan other
+//     than its own.
+//   - pw_dw_reduce_kernel adds the slices' partial sums in ascending slice
+//     order (none when one slice covers every center).
 //
 // Every sum runs in a fixed order and every output element has one owner:
-// no atomics, so dW repeats bit for bit from run to run, and the dense and
-// CSR walks give identical bits (the same means, the same product).
-//
-// What bounds it on an H100.  The means walk costs what the forward's walk
-// costs: one pair_code per listed entry and walk CTA and the per-cell
-// tests on the CUDA cores, the populated cells' MMAs on the tensor cores
-// (the walk header's note).  The product reads the xbar workspace (219 MB
-// in bf16 at 8 x 4096 centers, Cin = 124) once, since one CTA column holds
-// all of Cout up to 128, and round(g) once per 128 rows of dW (from L2);
-// its 2*27*Cin*Cout flops per center take the tensor cores a fraction of
-// that time, so it is bound by bytes.  The partial sums (S x 27*Cin x Cout
-// f32) are written and read once more by the reduce.  Fusing the product
-// into the walk with a cluster-level reduction is later work.
+// each slice sums its 64-center k-steps in ascending order (four k16 MMAs
+// each) into a zeroed accumulator, the reduce adds the slices in order, no
+// atomics.  So dW repeats bit for bit from run to run, a resumed run repeats
+// a straight one, and the dense and CSR walks give identical bits (the same
+// means, the same product).
 //
 // f32 mode (the exactness checks, off the training path): the product runs
-// f32 FMAs on the CUDA cores (pw_dw_product_f32_kernel, 64 x 64 per CTA),
-// as the forward's f32 product does.
+// f32 FMAs on the CUDA cores (pw_dw_product_f32_kernel, 64 x 64 per CTA,
+// the same slices), as the forward's f32 product does.
 //
 // Why the walk runs again instead of taking the forward's xbar.  The
 // forward writes the same bits, but the autograd function keeps only the
@@ -68,124 +74,54 @@
 // The C entry point checks each launch with cudaGetLastError and returns the
 // first error code; the Python wrapper raises on anything but 0.
 
-#include "pointwise_conv_walk.cuh"
+#include "pointwise_conv_product.cuh"
 
 using namespace pw;
 
 namespace {
 
-constexpr int DW_M = 128;     // rows of dW (27*Cin index) per tensor-core CTA
-constexpr int DW_N = 128;     // columns of dW (Cout) per tensor-core CTA
-constexpr int DW_K = 32;      // centers per staged k-step
 constexpr int F_M = 64;       // rows per f32 CTA
 constexpr int F_N = 64;       // columns per f32 CTA
 constexpr int F_K = 32;       // centers per f32 chunk
 constexpr int DW_THREADS = 256;
+// Work units (tiles x slices) the plan aims at: one per SM of an H100.  A
+// constant, never the card's SM count, so that the slices (and so dW's
+// bits) are the same on any card.
+constexpr int DW_UNITS = 132;
 
-// gb (n_rows, ldg) bf16 = round(g), zero past cout.
-__global__ void pw_dw_product_pack_kernel(const float* __restrict__ g,
-                                          __nv_bfloat16* __restrict__ gb, int n_rows,
-                                          int cout, int ldg) {
-  const size_t n = (size_t)n_rows * ldg;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    const int c = (int)(i % ldg);
-    const size_t r = i / ldg;
-    gb[i] = __float2bfloat16_rn(c < cout ? g[r * cout + c] : 0.f);
-  }
+struct DwPlan {
+  int slices;   // slices of the centers
+  int kchunk;   // 64-center k-steps per slice (the last may hold fewer)
+};
+
+// The slices of a (rows x K) xbar against cout columns of g: as many as
+// fit DW_UNITS / tiles (at least one, at most one per k-step), each of
+// ceil(k-steps / slices) k-steps.
+DwPlan dw_plan(int rows, int K, int cout) {
+  const int bn = gemm_bn(cout);
+  const int bm = bn <= 128 ? 256 : 128;   // GemmTile<bn>::BM
+  const int tiles = ((K + bm - 1) / bm) * ((cout + bn - 1) / bn);
+  const int ksteps = (rows + GEMM_BK - 1) / GEMM_BK;
+  int s = DW_UNITS / tiles;
+  s = s < 1 ? 1 : (s > ksteps ? ksteps : s);
+  const int kchunk = (ksteps + s - 1) / s;
+  return {(ksteps + kchunk - 1) / kchunk, kchunk};
 }
 
-// part[s] = xbar[slice s]^T . gb[slice s] (bf16 in, f32 accumulate).  xbar
-// (n_rows, ldx) with K columns read, gb (n_rows, ldg); grid (ceil(K /
-// DW_M), ceil(cout / DW_N), S); slice s holds centers s*chunk .. +chunk
-// (a multiple of DW_K, as is n_rows).
-__global__ void __launch_bounds__(DW_THREADS, 2)
-pw_dw_product_kernel(const __nv_bfloat16* __restrict__ xbar, int ldx,
-                     const __nv_bfloat16* __restrict__ gb, int ldg,
-                     float* __restrict__ part, int n_rows, int K, int cout, int chunk) {
-  __shared__ __align__(16) __nv_bfloat16 as[2][DW_K][DW_M + 8];   // xbar rows
-  __shared__ __align__(16) __nv_bfloat16 bs[2][DW_K][DW_N + 8];   // gb rows
-  const int k0 = blockIdx.x * DW_M;
-  const int o0 = blockIdx.y * DW_N;
-  const int s = blockIdx.z;
-  const int n_beg = s * chunk;
-  const int n_end = min(n_beg + chunk, n_rows);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp & 3, wn = warp >> 2;   // rows wm*32.., columns wn*64..
-
-  auto stage = [&](int n0, int buf) {
-    for (int c = threadIdx.x; c < DW_K * DW_M / 8; c += DW_THREADS) {   // A
-      const int r = c >> 4, q = c & 15;
-      const int k = k0 + q * 8;
-      const int valid = K - k >= 8 ? 8 : (K - k > 0 ? K - k : 0);
-      cp_async16(&as[buf][r][q * 8], xbar + (size_t)(n0 + r) * ldx + (valid > 0 ? k : 0),
-                 valid * 2);
-    }
-    for (int c = threadIdx.x; c < DW_K * DW_N / 8; c += DW_THREADS) {   // B
-      const int r = c >> 4, q = c & 15;
-      const int o = o0 + q * 8;
-      const bool ok = o < ldg;
-      cp_async16(&bs[buf][r][q * 8], ok ? gb + (size_t)(n0 + r) * ldg + o : gb, ok ? 16 : 0);
-    }
-    cp_async_commit();
-  };
-
-  float acc[2][8][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // ldmatrix.trans row addresses of the A fragments: lane l reads center
-  // row (l & 7) + ((l >> 4) << 3) of the k16 step, dW rows from column
-  // ((l >> 3) & 1) * 8 of the m16 tile
-  const int a_row = (lane & 7) + ((lane >> 4) << 3);
-  const int a_col = ((lane >> 3) & 1) * 8;
-  const int nk = (n_end - n_beg) / DW_K;
-  if (nk > 0) stage(n_beg, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    cp_async_wait_all();
-    __syncthreads();   // step kt landed; step kt-1 consumed
-    if (kt + 1 < nk) stage(n_beg + (kt + 1) * DW_K, buf ^ 1);
-#pragma unroll
-    for (int ks = 0; ks < DW_K / 16; ++ks) {
-      unsigned af[2][4];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4_t(af[mi], &as[buf][ks * 16 + a_row][wm * 32 + mi * 16 + a_col]);
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        unsigned bb[4];
-        ldsm_x4_t(bb, &bs[buf][ks * 16 + (lane & 15)][wn * 64 + p * 16 + (lane >> 4) * 8]);
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          mma_bf16(acc[mi][2 * p], af[mi], bb[0], bb[1]);
-          mma_bf16(acc[mi][2 * p + 1], af[mi], bb[2], bb[3]);
-        }
-      }
-    }
-  }
-
-  float* pb = part + (size_t)s * K * cout;
-  const int g = lane >> 2, tq = lane & 3;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int k = k0 + wm * 32 + mi * 16 + g + 8 * h;
-      if (k >= K) continue;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int o = o0 + wn * 64 + j * 8 + 2 * tq;
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          if (o + e < cout) pb[(size_t)k * cout + o + e] = acc[mi][j][2 * h + e];
-      }
-    }
-  }
+// gt (cout, rows) bf16 = round(g)^T, g (rows, cout) f32, rows a multiple of
+// 32: 32 x 32 tiles through shared memory, so that the reads of g and the
+// writes of gt are both coalesced.  Block 256 threads, grid (rows / 32,
+// ceil(cout / 32)).
+__global__ void pw_dw_product_pack_kernel(const float* __restrict__ g,
+                                          __nv_bfloat16* __restrict__ gt, int rows, int cout) {
+  __shared__ float t[32][33];
+  const int r0 = blockIdx.x * 32, c0 = blockIdx.y * 32;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int i = ty; i < 32; i += 8)
+    t[i][tx] = c0 + tx < cout ? g[(size_t)(r0 + i) * cout + c0 + tx] : 0.f;
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8)
+    if (c0 + i < cout) gt[(size_t)(c0 + i) * rows + r0 + tx] = __float2bfloat16_rn(t[tx][i]);
 }
 
 // f32 mode: part[s] = xbar[slice s]^T . g[slice s] with f32 FMAs in
@@ -255,6 +191,9 @@ __global__ void pw_dw_reduce_kernel(const float* __restrict__ part,  // (S, n)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float acc = part[i];
+  // unrolled so that the loads of eight slices are in flight at once; the
+  // adds stay in ascending slice order
+#pragma unroll 8
   for (int s = 1; s < S; ++s) acc += part[(size_t)s * n + i];
   dw[i] = acc;
 }
@@ -298,38 +237,42 @@ int pw_conv_dw_means(const void* ctr, const void* pts, const void* feats, void* 
 }
 
 // dW (K, cout) f32 = xbar^T . round(g) over n_rows centers (a multiple of
-// 32), K = 27*cin columns of xbar (n_rows, ldx) read.  bf16 != 0: xbar
-// bf16, ldx a multiple of 8, gb scratch of n_rows*ldg bf16 (ldg = cout
-// rounded up to 8); else xbar f32 and gb unused.  The centers split into
-// `splits` slices of `chunk` (a multiple of 32); part holds
-// splits*K*cout f32 (unused when splits == 1).  Returns the first
-// cudaError_t of the launches (0 = launched).
-int pw_conv_dw_product(const void* xbar, int ldx, const void* g, void* gb, int ldg, void* part,
-                       void* dw, int n_rows, int K, int cout, int splits, int chunk, int bf16,
-                       void* stream) {
+// 64), K = 27*cin columns of xbar (n_rows, ldx) read.  bf16 != 0: xbar bf16
+// at a 16-byte aligned address, ldx a multiple of 8, gt scratch of
+// cout*n_rows bf16; bn, bm, stages the tile of product_plan's rule and grid
+// the persistent grid (1 <= grid <= tiles * slices).  Else xbar f32, gt
+// and the tile unused.  Both: slices and chunk (centers, a multiple of 64)
+// must be dw_plan's; part holds slices*K*cout f32 (unused when slices ==
+// 1).  Returns the first cudaError_t of the launches (0 = launched), or
+// minus the CUresult of a failed tensor-map encode.
+int pw_conv_dw_product(const void* xbar, int ldx, const void* g, void* gt, void* part,
+                       void* dw, int n_rows, int K, int cout, int bf16, int bn, int bm,
+                       int stages, int slices, int chunk, int grid, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
-  float* out = splits == 1 ? static_cast<float*>(dw) : static_cast<float*>(part);
+  const DwPlan plan = dw_plan(n_rows, K, cout);
+  if (n_rows % TILE != 0 || slices != plan.slices || chunk != plan.kchunk * GEMM_BK)
+    return (int)cudaErrorInvalidValue;
+  float* out = slices == 1 ? static_cast<float*>(dw) : static_cast<float*>(part);
+  int err;
   if (bf16) {
-    const size_t n = (size_t)n_rows * ldg;
-    pw_dw_product_pack_kernel<<<grid_blocks(n), 256, 0, st>>>(
-        static_cast<const float*>(g), static_cast<__nv_bfloat16*>(gb), n_rows, cout, ldg);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    dim3 grid((K + DW_M - 1) / DW_M, (cout + DW_N - 1) / DW_N, splits);
-    pw_dw_product_kernel<<<grid, DW_THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(xbar), ldx, static_cast<const __nv_bfloat16*>(gb),
-        ldg, out, n_rows, K, cout, chunk);
+    pw_dw_product_pack_kernel<<<dim3(n_rows / 32, (cout + 31) / 32), 256, 0, st>>>(
+        static_cast<const float*>(g), static_cast<__nv_bfloat16*>(gt), n_rows, cout);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    // the product's rows are dW's (K), its reduction the centers
+    err = dispatch_gemm<DwProduct>(xbar, ldx, gt, n_rows, nullptr, out, K, n_rows, cout,
+                                   plan.kchunk, bn, bm, stages, grid, st);
   } else {
-    dim3 grid((K + F_M - 1) / F_M, (cout + F_N - 1) / F_N, splits);
-    pw_dw_product_f32_kernel<<<grid, DW_THREADS, 0, st>>>(
+    dim3 fgrid((K + F_M - 1) / F_M, (cout + F_N - 1) / F_N, slices);
+    pw_dw_product_f32_kernel<<<fgrid, DW_THREADS, 0, st>>>(
         static_cast<const float*>(xbar), ldx, static_cast<const float*>(g), out, n_rows, K,
         cout, chunk);
+    err = (int)cudaGetLastError();
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
+  if (err != 0 || slices == 1) return err;
   const int n = K * cout;
   pw_dw_reduce_kernel<<<(n + 255) / 256, 256, 0, st>>>(static_cast<const float*>(part),
-                                                       static_cast<float*>(dw), n, splits);
+                                                       static_cast<float*>(dw), n, slices);
   return (int)cudaGetLastError();
 }
 

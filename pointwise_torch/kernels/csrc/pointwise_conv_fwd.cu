@@ -120,4 +120,14 @@ int pw_conv_fwd_product(const void* xbar, int ldx, const void* w, int ldw,
                                     stages, grid, static_cast<cudaStream_t>(stream));
 }
 
+// The two tensor maps of a bf16 product alone, encoded on the host and
+// dropped (mn != 0: dW's M-major A): the host's share of a product launch,
+// timed by pointwise_torch/tools/time_products.py.  Returns 0, or minus the
+// CUresult of a failed encode.
+int pw_product_encode(const void* a, int lda, const void* wt, int ldw, int rows, int K, int n,
+                      int mn) {
+  CUtensorMap ta, tb;
+  return encode_product_maps(&ta, &tb, mn != 0, a, lda, wt, ldw, rows, K, n);
+}
+
 }  // extern "C"

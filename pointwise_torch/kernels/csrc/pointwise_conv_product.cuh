@@ -1,10 +1,15 @@
 // pointwise_conv_product.cuh — the (rows x K) x (K x N) product that the
-// forward (pointwise_conv_fwd.cu) and the feature gradient
-// (pointwise_conv_dx.cu) end with: _finalize_tile's product (:297) and
-// _dx_finalize's (:476) of pointwise_tpu/kernels/pointwise_conv_pallas.py.
+// forward (pointwise_conv_fwd.cu), the feature gradient
+// (pointwise_conv_dx.cu) and the weight gradient (pointwise_conv_dw.cu) end
+// with: _finalize_tile's product (:297), _dx_finalize's (:476) and
+// _dw_finalize's (:434) of pointwise_tpu/kernels/pointwise_conv_pallas.py.
 //
 //   forward  y  = xbar . W + bias,    xbar (rows, 27*Cin),  W (27*Cin, Cout)
 //   dX       dx = round(Z) . W^T,     Z (rows, 27*Cout),    W^T (27*Cout, Cin)
+//   dW       dW = xbar^T . round(g),  xbar^T (27*Cin, rows), g (rows, Cout)
+//
+// dW's design (its A M-major, its split over the centers, the reduce) is
+// in pointwise_conv_dw.cu's note; below, the forward's and dX's.
 //
 // What bounds it on an H100: the A operand (27*Cin or 27*Cout bf16 per row)
 // read once from device memory.  Its 2*K*N flops per row need about 40% of
@@ -44,17 +49,14 @@
 //
 // Every output element has one owner thread and one summation order: k in
 // steps of 64, each as four k16 MMAs in ascending k, into an accumulator
-// zeroed at the tile's start.  No split-K, no atomics, and nothing depends
-// on rows, a row's position or the SM count (the tile shape depends on n
-// only), so the result repeats bit for bit and a row shard's product
-// equals the same rows of the whole product.  The tag (FwdProduct,
-// DxProduct) names the kernel, so traces tell the forward's product from
-// dX's.
+// zeroed at the tile's start.  For the forward and dX no split-K, no
+// atomics, and nothing depends on rows, a row's position or the SM count
+// (the tile shape depends on n only), so the result repeats bit for bit
+// and a row shard's product equals the same rows of the whole product.
+// The tag (FwdProduct, DxProduct, DwProduct) names the kernel, so traces
+// tell the three products apart.
 
 #pragma once
-
-#include <cuda.h>   // CUtensorMap, cuTensorMapEncodeTiled (linked with -lcuda)
-#include <stdint.h>
 
 #include "pointwise_conv_walk.cuh"
 
@@ -62,17 +64,25 @@ namespace pw {
 
 struct FwdProduct {};
 struct DxProduct {};
+struct DwProduct {};   // dW = xbar^T . round(g): A M-major, split over the centers
+
+// A in memory with its rows (M) contiguous, read with wgmma's transpose bit.
+template <typename Tag>
+struct AMajorMN { static constexpr bool value = false; };
+template <>
+struct AMajorMN<DwProduct> { static constexpr bool value = true; };
 
 constexpr int PROD_M = 64;      // rows per f32 product CTA (and the row unit)
 constexpr int PROD_K = 32;      // k-step of the f32 kernel
 constexpr int PROD_THREADS = 256;
 constexpr int PROD_F32_N = 64;  // columns per f32 product CTA
 
-constexpr int GEMM_BK = 64;          // k-step: 64 bf16, one 128-byte swizzle row
+constexpr int GEMM_BK = TMA_BOX_K;   // k-step: 64 bf16, one 128-byte swizzle row
 constexpr int GEMM_CONSUMERS = 2;    // consumer warpgroups
 constexpr int GEMM_THREADS = 128 * (GEMM_CONSUMERS + 1);
 constexpr int GEMM_RING_BYTES = 230400;   // stages' budget under 227 KB
 constexpr int GEMM_MAX_STAGES = 8;
+constexpr int GEMM_BOX_BYTES = 64 * GEMM_BK * 2;   // 64 rows by one k-step
 
 // The tile of an N tile BN (8, 16, ..., 256): rows, stages, shared memory.
 template <int BN>
@@ -88,51 +98,7 @@ struct GemmTile {
   static constexpr int SMEM = 1024 + STAGES * STAGE_BYTES + 2 * STAGES * 8;
 };
 
-// ---- mbarrier, TMA and wgmma (PTX) ----------------------------------------
-
-__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(unsigned bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// Wait until the phase of parity ``parity`` of the barrier has completed.
-// A stage arrives within microseconds; a wait of 2^36 cycles (~35 s) can
-// only be a fault, and traps, so a broken ring fails its launch instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
-  unsigned done = 0;
-  const long long t0 = clock64();
-  while (true) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 36)) __trap();
-  }
-}
-// A 2-D box of the tensor map at (c0 innermost, c1) into shared memory,
-// completing its bytes on the barrier.
-__device__ __forceinline__ void tma_load_2d(unsigned dst, const CUtensorMap* map, unsigned bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
-  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
-}
+// ---- wgmma (PTX; the mbarrier and TMA helpers: pointwise_conv_common.cuh) ----
 
 // wgmma's shared-memory descriptor of a K-major tile in the 128-byte swizzle
 // (rows of 64 bf16, 8-row atoms of 1024 bytes): start address >> 4, leading
@@ -140,6 +106,15 @@ __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
 // k16 slice starts 32 bytes further; the atom's base stays 1024-aligned.
 __device__ __forceinline__ uint64_t gmma_desc(unsigned addr) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)64 << 32) |
+         ((uint64_t)1 << 62);
+}
+// The same for an M-major tile (rows contiguous: each 128-byte line holds 64
+// rows of one k, 8 lines per 1024-byte atom), read with the transpose bit:
+// the stride between 8-k groups is 1024 bytes; the offset between 64-row
+// groups is unused, since every wgmma reads 64 rows (it is set to the same
+// 1024).  A k16 slice starts 16 lines (2048 bytes) further.
+__device__ __forceinline__ uint64_t gmma_desc_mn(unsigned addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)64 << 16) | ((uint64_t)64 << 32) |
          ((uint64_t)1 << 62);
 }
 __device__ __forceinline__ void wgmma_fence() {
@@ -160,55 +135,60 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
 }
 
 // D (64 x N, f32, in registers) += A (64 x 16) . B (16 x N), both bf16 in
-// shared memory through descriptors, both K-major.
+// shared memory through descriptors; B K-major, A K-major (TA = 0) or
+// M-major (TA = 1, the transpose bit).
 template <int N>
 struct Wgmma;
 
 template <>
 struct Wgmma<8> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[4], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3"
-      "}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      "}, %4, %5, p, 1, 1, %7, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<16> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[8], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      "}, %8, %9, p, 1, 1, %11, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<32> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[16], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7,"
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      "}, %16, %17, p, 1, 1, %19, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<64> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[32], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -217,19 +197,20 @@ struct Wgmma<64> {
       "%8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23,"
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      "}, %32, %33, p, 1, 1, %35, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<128> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[64], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -242,7 +223,7 @@ struct Wgmma<128> {
       "%40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55,"
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, %67, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -254,12 +235,13 @@ struct Wgmma<128> {
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 template <>
 struct Wgmma<256> {
+  template <int TA>
   static __device__ __forceinline__ void mma(float (&d)[128], uint64_t da, uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -280,7 +262,7 @@ struct Wgmma<256> {
       "%104, %105, %106, %107, %108, %109, %110, %111,"
       "%112, %113, %114, %115, %116, %117, %118, %119,"
       "%120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      "}, %128, %129, p, 1, 1, %131, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
@@ -303,21 +285,29 @@ struct Wgmma<256> {
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA));
   }
 };
 
 // ---- the bf16 product --------------------------------------------------
 
-// y (rows, n) f32 = a . w (+ bias): tma_a over a {K, rows}, tma_b over w^T
-// {K, n} (K-major), both bf16 with 128-byte swizzled boxes of 64 columns;
-// bias (n,) f32 or null.  grid <= tiles, one CTA per SM.
+// y (rows, n) f32 = A . B (+ bias), A (rows x K) and B (K x n) bf16.
+//   FwdProduct, DxProduct: tma_a over a {K, rows} (K-major, one box of 64 k
+//     by BM rows a stage), all of K in one slice (kchunk = the k-steps).
+//   DwProduct: A = xbar^T, tma_a over xbar {rows, K} (M-major: rows are
+//     contiguous; BM/64 boxes of 64 rows by 64 k a stage, read with wgmma's
+//     transpose bit); slice sl of the k-steps (sl*kchunk .. +kchunk) writes
+//     its partial sums to y + sl*rows*n.
+// tma_b over B^T {K, n} (K-major), boxes of 64 k by BN; 128-byte swizzle
+// throughout; bias (n,) f32 or null.  Work units: (tile, slice), the tile
+// fastest; grid <= units, one CTA per SM.
 template <typename Tag, int BN>
 __global__ void __launch_bounds__(GEMM_THREADS, 1)
 pw_product_kernel(const __grid_constant__ CUtensorMap tma_a,
                   const __grid_constant__ CUtensorMap tma_b, const float* __restrict__ bias,
-                  float* __restrict__ y, int rows, int K, int n) {
+                  float* __restrict__ y, int rows, int K, int n, int kchunk) {
   using T = GemmTile<BN>;
+  constexpr bool MN = AMajorMN<Tag>::value;
   extern __shared__ unsigned char smem_raw[];
   const unsigned ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const unsigned a_ring = ring, b_ring = ring + T::STAGES * T::A_BYTES;
@@ -325,6 +315,7 @@ pw_product_kernel(const __grid_constant__ CUtensorMap tma_a,
   const int n_tiles = (n + BN - 1) / BN;
   const int tiles = ((rows + T::BM - 1) / T::BM) * n_tiles;
   const int ksteps = (K + GEMM_BK - 1) / GEMM_BK;
+  const int units = tiles * ((ksteps + kchunk - 1) / kchunk);
   const int wg = threadIdx.x >> 7;
 
   if (threadIdx.x == 0) {
@@ -344,12 +335,25 @@ pw_product_kernel(const __grid_constant__ CUtensorMap tma_a,
       tma_prefetch(&tma_b);
       int s = 0;
       unsigned phase = 0;
-      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-        const int r0 = (t / n_tiles) * T::BM, c0 = (t % n_tiles) * BN;
-        for (int kt = 0; kt < ksteps; ++kt) {
+      for (int t = blockIdx.x; t < units; t += gridDim.x) {
+        const int tile = t % tiles, sl = t / tiles;
+        const int r0 = (tile / n_tiles) * T::BM, c0 = (tile % n_tiles) * BN;
+        const int kend = min((sl + 1) * kchunk, ksteps);
+        // M-major A: a box that starts past the last row holds no row of y
+        // and is not loaded (its shared memory feeds only rows never stored)
+        const int boxes = MN ? min(T::BM / 64, (rows - r0 + 63) / 64) : 1;
+        const unsigned bytes = MN ? boxes * GEMM_BOX_BYTES + T::B_BYTES : T::STAGE_BYTES;
+        for (int kt = sl * kchunk; kt < kend; ++kt) {
           mbar_wait(empty0 + 8 * s, phase ^ 1);         // the consumers released it
-          mbar_expect_tx(full0 + 8 * s, T::STAGE_BYTES);
-          tma_load_2d(a_ring + s * T::A_BYTES, &tma_a, full0 + 8 * s, kt * GEMM_BK, r0);
+          mbar_expect_tx(full0 + 8 * s, bytes);
+          const unsigned a_s = a_ring + s * T::A_BYTES;
+          if constexpr (MN) {
+            for (int j = 0; j < boxes; ++j)
+              tma_load_2d(a_s + j * GEMM_BOX_BYTES, &tma_a, full0 + 8 * s, r0 + 64 * j,
+                          kt * GEMM_BK);
+          } else {
+            tma_load_2d(a_s, &tma_a, full0 + 8 * s, kt * GEMM_BK, r0);
+          }
           tma_load_2d(b_ring + s * T::B_BYTES, &tma_b, full0 + 8 * s, kt * GEMM_BK, c0);
           if (++s == T::STAGES) {
             s = 0;
@@ -365,29 +369,39 @@ pw_product_kernel(const __grid_constant__ CUtensorMap tma_a,
     float d[T::MT][BN / 2];
     int s = 0;
     unsigned phase = 0;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
-      const int r0 = (t / n_tiles) * T::BM, c0 = (t % n_tiles) * BN;
+    for (int t = blockIdx.x; t < units; t += gridDim.x) {
+      const int tile = t % tiles, sl = t / tiles;
+      const int r0 = (tile / n_tiles) * T::BM, c0 = (tile % n_tiles) * BN;
+      const int kend = min((sl + 1) * kchunk, ksteps);
 #pragma unroll
-      for (int m = 0; m < T::MT; ++m)
+      for (int q = 0; q < T::MT; ++q)
 #pragma unroll
-        for (int i = 0; i < BN / 2; ++i) d[m][i] = 0.f;
-      for (int kt = 0; kt < ksteps; ++kt) {
+        for (int i = 0; i < BN / 2; ++i) d[q][i] = 0.f;
+      for (int kt = sl * kchunk; kt < kend; ++kt) {
         mbar_wait(full0 + 8 * s, phase);
-        const unsigned a_s = a_ring + s * T::A_BYTES + wg * T::MT * 64 * 128;
+        // sub-tile q's 64 rows: 64 rows x 128 bytes of a K-major tile, or
+        // one 64 x 64 box of the M-major one
+        const unsigned a_s = a_ring + s * T::A_BYTES + wg * T::MT * GEMM_BOX_BYTES;
         const unsigned b_s = b_ring + s * T::B_BYTES;
 #pragma unroll
-        for (int m = 0; m < T::MT; ++m) fence_acc(d[m]);
+        for (int q = 0; q < T::MT; ++q) fence_acc(d[q]);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < GEMM_BK / 16; ++kk)
 #pragma unroll
-          for (int m = 0; m < T::MT; ++m)
-            Wgmma<BN>::mma(d[m], gmma_desc(a_s + m * 64 * 128 + kk * 32),
-                           gmma_desc(b_s + kk * 32));
+          for (int q = 0; q < T::MT; ++q) {
+            const unsigned a_q = a_s + q * GEMM_BOX_BYTES;
+            if constexpr (MN)   // k16 = 16 rows of 128 bytes further
+              Wgmma<BN>::template mma<1>(d[q], gmma_desc_mn(a_q + kk * 2048),
+                                         gmma_desc(b_s + kk * 32));
+            else                // k16 = 32 bytes further in each row
+              Wgmma<BN>::template mma<0>(d[q], gmma_desc(a_q + kk * 32),
+                                         gmma_desc(b_s + kk * 32));
+          }
         wgmma_commit();
         wgmma_wait_all();
 #pragma unroll
-        for (int m = 0; m < T::MT; ++m) fence_acc(d[m]);
+        for (int q = 0; q < T::MT; ++q) fence_acc(d[q]);
         if (lane == 0) mbar_arrive(empty0 + 8 * s);     // this warp is done with stage s
         if (++s == T::STAGES) {
           s = 0;
@@ -396,17 +410,18 @@ pw_product_kernel(const __grid_constant__ CUtensorMap tma_a,
       }
       // D fragment: warp w holds rows 16w + lane/4 (+8), columns 8i +
       // 2*(lane%4) (+1) of each m64 sub-tile
+      float* ys = y + (size_t)sl * rows * n;
 #pragma unroll
-      for (int m = 0; m < T::MT; ++m) {
+      for (int q = 0; q < T::MT; ++q) {
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = r0 + (wg * T::MT + m) * 64 + warp * 16 + (lane >> 2) + 8 * h;
+          const int r = r0 + (wg * T::MT + q) * 64 + warp * 16 + (lane >> 2) + 8 * h;
           if (r >= rows) continue;
-          float* yr = y + (size_t)r * n;
+          float* yr = ys + (size_t)r * n;
 #pragma unroll
           for (int i = 0; i < BN / 8; ++i) {
             const int c = c0 + i * 8 + 2 * (lane & 3);
-            float v0 = d[m][4 * i + 2 * h], v1 = d[m][4 * i + 2 * h + 1];
+            float v0 = d[q][4 * i + 2 * h], v1 = d[q][4 * i + 2 * h + 1];
             if (bias != nullptr) {
               if (c < n) v0 += bias[c];
               if (c + 1 < n) v1 += bias[c + 1];
@@ -486,37 +501,57 @@ inline int gemm_bn(int n) {
   return bn;
 }
 
-// A 2-D bf16 tensor map over (outer, inner) with row stride ld elements
-// (a multiple of 8), boxes of GEMM_BK x box_outer, 128-byte swizzle, zeros
-// past the edges.  Returns the CUresult (0 = encoded).
-inline int encode_map(CUtensorMap* map, const void* base, int inner, int outer, int ld,
-                      int box_outer) {
-  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)GEMM_BK, (cuuint32_t)box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return (int)cuTensorMapEncodeTiled(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                                     const_cast<void*>(base), dims, strides, box, elem,
-                                     CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+// Both tensor maps of a product: a (rows, lda) K-major, or M-major (mn:
+// xbar (K, lda), whose rows are the k index), boxes of GemmTile<bn>'s
+// rows; wt = B^T (n, ldw).  Returns 0, or minus the CUresult of a failed
+// encode.
+inline int encode_product_maps(CUtensorMap* ta, CUtensorMap* tb, bool mn, const void* a,
+                               int lda, const void* wt, int ldw, int rows, int K, int n) {
+  const int bn = gemm_bn(n), bm = bn <= 128 ? 256 : 128;   // GemmTile<bn>::BM
+  int err = mn ? encode_map(ta, a, rows, K, lda, 64) : encode_map(ta, a, K, rows, lda, bm);
+  if (err == 0) err = encode_map(tb, wt, K, n, ldw, bn);
+  return -err;
 }
 
 template <typename Tag, int BN>
 int launch_gemm(const void* a, int lda, const void* wt, int ldw, const float* bias, float* y,
-                int rows, int K, int n, int bm, int stages, int grid, cudaStream_t stream) {
+                int rows, int K, int n, int kchunk, int bm, int stages, int grid,
+                cudaStream_t stream) {
   using T = GemmTile<BN>;
   if (bm != T::BM || stages != T::STAGES) return (int)cudaErrorInvalidValue;
   CUtensorMap ta, tb;
-  int err = encode_map(&ta, a, K, rows, lda, T::BM);
-  if (err == 0) err = encode_map(&tb, wt, K, n, ldw, BN);
-  if (err != 0) return -err;   // a failed encode: minus its CUresult
+  const int err =
+      encode_product_maps(&ta, &tb, AMajorMN<Tag>::value, a, lda, wt, ldw, rows, K, n);
+  if (err != 0) return err;
   auto kernel = pw_product_kernel<Tag, BN>;
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, GEMM_THREADS, T::SMEM, stream>>>(ta, tb, bias, y, rows, K, n);
+  kernel<<<grid, GEMM_THREADS, T::SMEM, stream>>>(ta, tb, bias, y, rows, K, n, kchunk);
   return (int)cudaGetLastError();
+}
+
+// launch_gemm at the N tile bn (= gemm_bn(n), checked): 1 <= grid, kchunk
+// the k-steps of a slice.
+template <typename Tag>
+int dispatch_gemm(const void* a, int lda, const void* wt, int ldw, const float* bias, float* y,
+                  int rows, int K, int n, int kchunk, int bn, int bm, int stages, int grid,
+                  cudaStream_t stream) {
+  if (grid < 1 || kchunk < 1 || bn != gemm_bn(n)) return (int)cudaErrorInvalidValue;
+  switch (bn) {
+    case 8: return launch_gemm<Tag, 8>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+    case 16: return launch_gemm<Tag, 16>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+    case 32: return launch_gemm<Tag, 32>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+    case 64: return launch_gemm<Tag, 64>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+    case 128: return launch_gemm<Tag, 128>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+    default: return launch_gemm<Tag, 256>(
+        a, lda, wt, ldw, bias, y, rows, K, n, kchunk, bm, stages, grid, stream);
+  }
 }
 
 // y (rows, n) f32 = a (rows, lda; K columns read) . w (+ bias).  rows a
@@ -538,21 +573,8 @@ int launch_product(const void* a, int lda, const void* w, int ldw, const float* 
         static_cast<const float*>(a), lda, static_cast<const float*>(w), bias, y, K, n);
     return (int)cudaGetLastError();
   }
-  if (grid < 1 || bn != gemm_bn(n)) return (int)cudaErrorInvalidValue;
-  switch (bn) {
-    case 8: return launch_gemm<Tag, 8>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-    case 16: return launch_gemm<Tag, 16>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-    case 32: return launch_gemm<Tag, 32>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-    case 64: return launch_gemm<Tag, 64>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-    case 128: return launch_gemm<Tag, 128>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-    default: return launch_gemm<Tag, 256>(
-        a, lda, w, ldw, bias, y, rows, K, n, bm, stages, grid, stream);
-  }
+  return dispatch_gemm<Tag>(a, lda, w, ldw, bias, y, rows, K, n, (K + GEMM_BK - 1) / GEMM_BK,
+                            bn, bm, stages, grid, stream);
 }
 
 }  // namespace pw

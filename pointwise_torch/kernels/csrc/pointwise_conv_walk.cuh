@@ -3,6 +3,11 @@
 // the feature gradient (pointwise_conv_dx.cu), and the PTX helpers
 // (ldmatrix, mma.sync) of all three.
 //
+// Replaces the walks of pointwise_tpu/kernels/pointwise_conv_pallas.py:
+// _fwd_kernel_resident (:320), _fwd_kernel (:268) and _fwd_kernel_csr
+// (:599) with their external-counts variants, the dW kernels' (:396, :842,
+// :636) and the dX kernels' (:495-914; tag DxSums, below).
+//
 // What it computes.  For every center i and cell k, the mean of the feature
 // rows of the in-ball candidates j with pair_code(i, j) == k, divided in f32
 // by max(count, 1) (or by max(cnt_in, 1)) and rounded to the matmul type T,
@@ -73,17 +78,38 @@
 // the CSR list drops holds no in-ball pair, so the dense walk skips every
 // cell of it and both walks give identical bits.
 //
-// What bounds it on an H100: latency.  The accumulators of 16 centers (27
-// x 128 f32 each) fill most of an SM's registers, so an SM runs 2 CTAs (18
-// warps), and each iteration's chains (codes, cell tests, MMAs) and its two
-// barriers run in turn with little to hide them.  The work itself is the
-// codes (one pair_code per listed entry per CTA, ~30 instructions on the
-// CUDA cores) and the per-cell tests; the MMAs of the populated cells are
-// the smaller part, since Morton order keeps a 16 x 16 block in a few of
-// the 27 cells.
+// What bounds it on an H100: latency and instruction issue, not bytes or
+// MMAs.  The accumulators of 16 centers (27 x 128 f32 each) fill most of an
+// SM's registers, so an SM runs 2 CTAs (18 warps), and each iteration's
+// chains run in turn between two barriers.  The split of its warps' cycles
+// (pointwise_torch/tools/walk_split.py, PERF.md; an H100 SXM at 700 W) at
+// layer 2 of a 1M-point request (Cin 124): the codes 50% (one pair_code per listed pair in each
+// of the 3 CTAs of a center tile), the cp.async staging 33%, the cell tests
+// 6%, the waits on the barriers 3%, the MMAs 2%; at Cin 6 the codes 35% and
+// the tests 47%.
+//
+// The forward's bf16 walk at NT = 16 (Cin > 56; walk_tma) stages its
+// features by TMA instead of cp.async: the packed features are a 2-D
+// tensor map {128 columns, terms*B*ng*Mp rows}, and one thread issues, per
+// live k-step, two boxes of 16 rows by 64 columns (the 128-byte swizzle)
+// into a 1024-aligned buffer, completing on that buffer's full mbarrier;
+// the warps wait on it just before they sum, and read their B fragments by
+// ldmatrix.trans at the swizzled addresses.  That takes the issue of 2,048
+// cp.async a CTA-iteration (and their address arithmetic) off every warp;
+// with each warp reading the live k-steps as one byte a lane and one OR
+// over the warp (at Cin 6 that read was 1% slower than the loop it keeps),
+// the walk at layer 2 of the 1M request falls from 26.5 to 22.5 ms on the
+// same H100.  Tried
+// and slower (PERF.md): the codes shared by the 3 CTAs of a center tile
+// through a cluster (each computes a third and stores it into all three
+// over DSMEM; the cluster barrier costs more than the codes it saves), and
+// an axis cell from three compares in place of floor and min (more
+// instructions than the conversion pipe's two).  dW's and dX's walks keep
+// the cp.async staging.
 
 #pragma once
 
+#include <string.h>
 #include <type_traits>
 
 #include "pointwise_conv_common.cuh"
@@ -94,6 +120,34 @@ constexpr int WALK_M = 16;          // centers per walk CTA
 constexpr int WALK_MAX_WARPS = 9;   // warps per walk CTA, at most
 constexpr int MAX_WIDTH = 1024;     // widest Cin (and forward Cout) accepted
 constexpr unsigned NO_CELL = 0xFFu;
+
+// The walk's time split, built only into the instrumented copy of
+// pointwise_torch/tools/walk_split.py (csrc/pointwise_conv_walk_split.cu
+// defines PW_WALK_SPLIT): each warp adds the clock cycles of each part of
+// its loop (WalkPart) into pw_split_cycles, summed over every warp; the
+// main build compiles none of it.
+enum WalkPart { PART_CODES, PART_STAGE, PART_WAIT, PART_TESTS, PART_MMA, PART_EPILOGUE,
+                PART_COUNT };
+#ifdef PW_WALK_SPLIT
+__device__ unsigned long long pw_split_cycles[PART_COUNT];
+#define PW_SPLIT_BEGIN                  \
+  unsigned split_t = (unsigned)clock(); \
+  unsigned split_acc[PART_COUNT] = {};
+#define PW_SPLIT(part)                            \
+  {                                               \
+    const unsigned split_now = (unsigned)clock(); \
+    split_acc[part] += split_now - split_t;       \
+    split_t = split_now;                          \
+  }
+#define PW_SPLIT_END                                                          \
+  if ((threadIdx.x & 31) == 0)                                                \
+    for (int split_p = 0; split_p < PART_COUNT; ++split_p)                    \
+      atomicAdd(&pw_split_cycles[split_p], (unsigned long long)split_acc[split_p]);
+#else
+#define PW_SPLIT_BEGIN
+#define PW_SPLIT(part)
+#define PW_SPLIT_END
+#endif
 
 // Tags of the walk's three callers: the kernels' names (and so the traces)
 // tell the forward's walk from dW's and dX's.
@@ -134,6 +188,12 @@ __device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
                : "memory");
 }
 __device__ __forceinline__ void ldsm_x2_t(unsigned& r0, unsigned& r1, const void* p) {
@@ -185,12 +245,23 @@ size_t walk_scale_elems(int B, int n) {
   return (size_t)Terms<T>::value * B * N_CELLS * n;
 }
 
+// The forward's bf16 walk at NT = 16 (Cin > 56) stages its features by TMA
+// into 128-byte swizzled boxes (see the note at the top).
+template <typename Tag, typename T>
+__host__ __device__ constexpr bool walk_tma(int nt) {
+  return std::is_same<Tag, FwdMeans>::value && std::is_same<T, __nv_bfloat16>::value &&
+         nt == 16;
+}
+constexpr int WALK_TMA_KSTEP_BYTES = 16 * 128 * 2;   // one k-step: 16 rows x 128 columns
+
 template <typename Tag, typename T>
 size_t walk_smem_bytes(int cin) {
   const int sp = walk_shape(cin).nt * 8 + 8;
   const int rows = WalkRows<T>::value;
   const int sterms = IsDx<Tag>::value ? Terms<T>::value : 0;
-  return sizeof(__nv_bfloat16) * 2 * Terms<T>::value * rows * sp   // features
+  const bool tma = walk_tma<Tag, T>(walk_shape(cin).nt);
+  return (tma ? 1024 + 2 * (rows / 16) * WALK_TMA_KSTEP_BYTES + 2 * 8   // aligned, barriers
+              : sizeof(__nv_bfloat16) * 2 * Terms<T>::value * rows * sp)   // features
          + sizeof(__nv_bfloat16) * 2 * sterms * N_CELLS * rows     // dX's scales
          + sizeof(float) * 2 * rows * 3                             // coordinates
          + 2 * (rows / 16) * 32 * sizeof(uint2)                     // codes
@@ -278,7 +349,8 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
                float* __restrict__ cnt_out,              // (B, Ncp, 27) or null
                T* __restrict__ xbar,                     // (B * Ncp, ldx)
                int ldx, int B, int Ncp, int Mp, int cin, int ng_total, int ctas,
-               float radius, float inv) {
+               float radius, float inv,
+               const __grid_constant__ CUtensorMap tma_f) {   // packed (walk_tma only)
   constexpr int CW = 16 / NT;           // cells per warp
   constexpr bool DX = IsDx<Tag>::value;
   constexpr int TERMS = Terms<T>::value;
@@ -289,9 +361,17 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   constexpr int W8 = NT * 8;            // staged columns
   constexpr int SP = W8 + 8;            // padded shared row: ldmatrix rows on distinct banks
   constexpr unsigned ONE2 = 0x3F803F80u;   // two bf16 1.0
+  constexpr bool TMA = walk_tma<Tag, T>(NT);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(smem_raw);   // [2][TERMS][ROWS][SP]
-  __nv_bfloat16* ss = fs + 2 * TERMS * ROWS * SP;   // [2][STERMS][27][ROWS] (dX)
+  // TMA: [2][KS][2 halves][16 rows][128 bytes], 1024-aligned (the swizzle
+  // atom), then the two buffers' full barriers; else [2][TERMS][ROWS][SP]
+  unsigned char* fbase = smem_raw;
+  if constexpr (TMA) fbase += (1024u - (smem_u32(smem_raw) & 1023u)) & 1023u;
+  __nv_bfloat16* fs = reinterpret_cast<__nv_bfloat16*>(fbase);
+  const unsigned full0 = smem_u32(fbase) + 2 * KS * WALK_TMA_KSTEP_BYTES;
+  __nv_bfloat16* ss =
+      TMA ? reinterpret_cast<__nv_bfloat16*>(fbase + 2 * KS * WALK_TMA_KSTEP_BYTES + 16)
+          : fs + 2 * TERMS * ROWS * SP;   // [2][STERMS][27][ROWS] (dX)
   float* cxyz = reinterpret_cast<float*>(ss + 2 * STERMS * N_CELLS * ROWS);   // [2][ROWS*3]
   uint2* codes = reinterpret_cast<uint2*>(cxyz + 2 * ROWS * 3);         // [2][KS][32]
   float* pc = reinterpret_cast<float*>(codes + 2 * KS * 32);           // [WALK_M*3]
@@ -328,8 +408,18 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   const __nv_bfloat16* fb = packed + ((size_t)b * ng_total + ng) * Mp * W8;
   const float r2 = __fmul_rn(radius, radius);
 
+  PW_SPLIT_BEGIN
   for (int i = threadIdx.x; i < WALK_M * 3; i += nthreads)
     pc[i] = ctr[((size_t)b * Ncp + c0) * 3 + i];
+  const CUtensorMap* fmap = &tma_f;
+  if constexpr (TMA) {
+    if (threadIdx.x == 0) {
+      mbar_init(full0, 1);
+      mbar_init(full0 + 8, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      tma_prefetch(fmap);
+    }
+  }
 
   // Iteration u walks list entries u*SUB .. u*SUB + SUB-1 (those < n_walk).
   auto tile_of = [&](int t) { return list != nullptr ? list[t] : t; };
@@ -375,6 +465,31 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
       }
     }
   };
+  // TMA (one thread): iteration u's live k-steps into buffer buf, each as
+  // two boxes of 16 rows by 64 columns, completing on buf's full barrier
+  // (with no live k-step the arrival alone completes its phase).  The
+  // buffer was last read by ldmatrix before the barrier that precedes this
+  // call; the proxy fence orders those reads before the copies' writes.
+  auto issue_feats = [&](int u, int buf, unsigned live) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    const unsigned bar = full0 + 8 * buf;
+    mbar_expect_tx(bar, __popc(live) * WALK_TMA_KSTEP_BYTES);
+    const unsigned dst = smem_u32(fs) + buf * KS * WALK_TMA_KSTEP_BYTES;
+    const int row0 = (b * ng_total + ng) * Mp;
+    int first[SUB];   // the rows of the iteration's list entries
+#pragma unroll
+    for (int e = 0; e < SUB; ++e)
+      first[e] = (live >> (e * (TILE / 16))) & ((1u << (TILE / 16)) - 1u)
+                     ? row0 + tile_of(u * SUB + e) * TILE : 0;
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      if (!((live >> s) & 1u)) continue;
+      const int row = first[s / (TILE / 16)] + (s % (TILE / 16)) * 16;
+      tma_load_2d(dst + s * WALK_TMA_KSTEP_BYTES, fmap, bar, 0, row);
+      tma_load_2d(dst + s * WALK_TMA_KSTEP_BYTES + WALK_TMA_KSTEP_BYTES / 2, fmap, bar,
+                  TMA_BOX_K, row);
+    }
+  };
   // The codes of the 16 x ROWS block of iteration u (coordinates in
   // cxyz[buf]) into codes[buf], in each lane's fragment order: code (m, j)
   // at byte ((j/16)*32 + (m%8)*4 + (j%8)/2)*8 + ((j/8)%2)*4 + (m/8)*2 + j%2
@@ -405,10 +520,14 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     live = __reduce_or_sync(0xffffffffu, live);
     if (lane == 0) live_w[buf * 32 + warp] = (unsigned char)live;
   };
-  auto live_of = [&](int buf) {
-    unsigned live = 0;
-    for (int w = 0; w < nwarps; ++w) live |= live_w[buf * 32 + w];
-    return live;
+  auto live_of = [&](int buf) {   // TMA: one warp's byte a lane, ORed over the warp
+    if constexpr (TMA) {
+      return __reduce_or_sync(0xffffffffu, lane < nwarps ? live_w[buf * 32 + lane] : 0u);
+    } else {
+      unsigned live = 0;
+      for (int w = 0; w < nwarps; ++w) live |= live_w[buf * 32 + w];
+      return live;
+    }
   };
 
   float acc[CW][NT][4];
@@ -419,6 +538,22 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][n][e] = 0.f;
 
+  // TMA: ac += a . (k-step s of buffer buf), NT = 16 n8-tiles; lane l
+  // reads row l % 16 of the k-step, 16-byte chunk c = 2p + l / 16 of its
+  // 256-byte row (half c / 8, position c % 8 XOR the row % 8: the 128-byte
+  // swizzle TMA wrote)
+  auto mma_tma = [&](float (&ac)[NT][4], const unsigned (&a)[4], int buf, int s) {
+    const int r = lane & 15;
+    const unsigned row = smem_u32(fs) + (buf * KS + s) * WALK_TMA_KSTEP_BYTES + r * 128;
+#pragma unroll
+    for (int p = 0; p < NT / 2; ++p) {
+      const int c = 2 * p + (lane >> 4);
+      unsigned bb[4];
+      ldsm_x4_t(bb, row + (c >> 3) * (WALK_TMA_KSTEP_BYTES / 2) + (((c & 7) ^ (r & 7)) << 4));
+      mma_bf16(ac[2 * p], a, bb[0], bb[1]);
+      mma_bf16(ac[2 * p + 1], a, bb[2], bb[3]);
+    }
+  };
   // ac += a . (the staged rows at frow, every term), NT n8-tiles
   auto mma_terms = [&](float (&ac)[NT][4], const unsigned (&a)[4],
                        const __nv_bfloat16* frow) {
@@ -450,26 +585,46 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
+    PW_SPLIT(PART_WAIT)
     make_codes(0, 0);
+    PW_SPLIT(PART_CODES)
     __syncthreads();
+    PW_SPLIT(PART_WAIT)
     live_cur = live_of(0);
-    stage_feats(0, 0, live_cur);
+    if constexpr (TMA) {
+      if (threadIdx.x == 0) issue_feats(0, 0, live_cur);
+    } else {
+      stage_feats(0, 0, live_cur);
+    }
     if (n_it > 1) stage_xyz(1, 1);
     cp_async_commit();
+    PW_SPLIT(PART_STAGE)
   }
   for (int u = 0; u < n_it; ++u) {
     const int buf = u & 1;
     cp_async_wait_all();
     __syncthreads();   // u's features and u+1's coordinates landed; u-1 summed
+    PW_SPLIT(PART_WAIT)
     if (u + 1 < n_it) make_codes(u + 1, buf ^ 1);
+    PW_SPLIT(PART_CODES)
     __syncthreads();   // u+1's codes and live k-steps written
+    PW_SPLIT(PART_WAIT)
     unsigned live_next = 0;
     if (u + 1 < n_it) {
       live_next = live_of(buf ^ 1);
-      stage_feats(u + 1, buf ^ 1, live_next);
+      if constexpr (TMA) {
+        if (threadIdx.x == 0) issue_feats(u + 1, buf ^ 1, live_next);
+      } else {
+        stage_feats(u + 1, buf ^ 1, live_next);
+      }
       if (u + 2 < n_it) stage_xyz(u + 2, buf);
     }
     cp_async_commit();
+    PW_SPLIT(PART_STAGE)
+    if constexpr (TMA) {
+      mbar_wait(full0 + 8 * buf, (u >> 1) & 1);   // u's features landed
+      PW_SPLIT(PART_WAIT)
+    }
 
     if (active && live_cur != 0u) {
       const __nv_bfloat16* ft = fs + buf * TERMS * ROWS * SP;
@@ -486,11 +641,15 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
           const unsigned kk = (unsigned)k * 0x01010101u;
           const unsigned e0 = __vcmpeq4(cw.x, kk);
           const unsigned e1 = __vcmpeq4(cw.y, kk);
-          if (!__any_sync(0xffffffffu, (e0 | e1) != 0u)) continue;   // empty cell
+          if (!__any_sync(0xffffffffu, (e0 | e1) != 0u)) {   // empty cell
+            PW_SPLIT(PART_TESTS)
+            continue;
+          }
           // the plane's masks: rows g and g+8, columns 2tq, 2tq+1 (m0, m1)
           // and 2tq+8, 2tq+9 (m2, m3), as bf16 pairs
           const unsigned m0 = __byte_perm(e0, 0u, 0x1100), m1 = __byte_perm(e0, 0u, 0x3322);
           const unsigned m2 = __byte_perm(e1, 0u, 0x1100), m3 = __byte_perm(e1, 0u, 0x3322);
+          PW_SPLIT(PART_TESTS)
           if constexpr (DX) {
             // the scaled plane: each column's scale in place of the ones
 #pragma unroll
@@ -503,14 +662,21 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
             }
           } else {
             const unsigned a[4] = {m0 & ONE2, m1 & ONE2, m2 & ONE2, m3 & ONE2};
-            mma_terms(acc[i], a, frow);
+            if constexpr (TMA)
+              mma_tma(acc[i], a, buf, s);
+            else
+              mma_terms(acc[i], a, frow);
           }
+          PW_SPLIT(PART_MMA)
         }
       }
     }
     live_cur = live_next;
   }
-  if (!active) return;
+  if (!active) {
+    PW_SPLIT_END
+    return;
+  }
 
   // means (and counts), or dX's sums: thread (g, tq) holds rows g and
   // g+8, columns nt*8 + 2*tq + {0, 1}; the count is column W8-1, held by
@@ -549,6 +715,8 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
       }
     }
   }
+  PW_SPLIT(PART_EPILOGUE)
+  PW_SPLIT_END
 }
 
 template <typename Tag, typename T, int NT>
@@ -558,13 +726,19 @@ int launch_walk_nt(const WalkShape& s, const float* ctr, const float* pts,
                    int B, int Ncp, int Mp, int cin, float radius, float inv,
                    cudaStream_t stream) {
   const size_t smem = walk_smem_bytes<Tag, T>(cin);
+  CUtensorMap tf;
+  memset(&tf, 0, sizeof tf);
+  if (walk_tma<Tag, T>(NT)) {   // packed {NT*8 = 128 columns, terms*B*ng*Mp rows}
+    const int e = encode_map(&tf, packed, NT * 8, Terms<T>::value * B * s.ng * Mp, NT * 8, 16);
+    if (e != 0) return -e;
+  }
   cudaError_t err = cudaFuncSetAttribute(
       pw_walk_kernel<Tag, T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Ncp / WALK_M) * s.ng * s.ctas, B);
   pw_walk_kernel<Tag, T, NT><<<grid, s.warps * 32, smem, stream>>>(
       ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin,
-      s.ng, s.ctas, radius, inv);
+      s.ng, s.ctas, radius, inv, tf);
   return (int)cudaGetLastError();
 }
 

@@ -17,9 +17,10 @@ launch failure raises.
       ``product_plan``), each with its plain version;
   conv_dw / conv_dw_plain    weight gradient (csrc/pointwise_conv_dw.cu),
       replacing the ``_dw_kernel*`` family: the forward's means walk
-      dividing by the forward's counts ``conv_dw_means`` then the
-      tensor-core product ``conv_dw_product`` (``_dw_finalize``'s), each
-      with its plain version;
+      dividing by the forward's counts ``conv_dw_means`` then the product
+      ``conv_dw_product`` (``_dw_finalize``'s; the forward's TMA / wgmma
+      kernel with xbar^T read M-major, split over the centers by
+      ``dw_product_plan``), each with its plain version;
   conv_dx / conv_dx_plain    feature gradient (csrc/pointwise_conv_dx.cu),
       replacing the ``_dx_kernel*`` family: the walk with candidates as rows
       and scaled planes ``conv_dx_sums`` then the product
@@ -62,6 +63,7 @@ product; every product accumulates in f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -108,6 +110,11 @@ _PRODUCT_BK = 64
 _PRODUCT_CONSUMERS = 2
 _PRODUCT_RING_BYTES = 230_400
 _PRODUCT_MAX_STAGES = 8
+# dW's product (tag DwProduct of the same kernel) cuts the centers into
+# slices to fill the card: it aims at this many work units (tiles x
+# slices), one per SM of an H100; a constant, so that dW's bits never
+# depend on the card (csrc/pointwise_conv_dw.cu's DW_UNITS).
+DW_UNITS = 132
 
 # Kernel launches per walk mode: the wrapper adds one per launch, nowhere
 # else.  Callers reset them to show that a run went through the kernel.
@@ -128,6 +135,17 @@ _libs: dict = {}
 
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count_of(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(dev) -> int:
+    """The SM count of a CUDA device (asked once per device)."""
+    return _sm_count_of(torch.cuda.current_device() if dev.index is None
+                        else dev.index)
 
 
 def reset_launches() -> None:
@@ -249,6 +267,8 @@ def _bind(stem: str, lib):
         lib.pw_conv_pack_elems.argtypes = [ci] * 4
         lib.pw_conv_pack_elems.restype = ll
         lib.pw_conv_tile.restype = ci
+        lib.pw_product_encode.argtypes = [vp, ci, vp, ci] + [ci] * 4
+        lib.pw_product_encode.restype = ci
         lib.pw_conv_max_width.restype = ci
         if lib.pw_conv_tile() != TILE:
             raise RuntimeError(f"kernel TILE {lib.pw_conv_tile()} != {TILE}")
@@ -259,8 +279,8 @@ def _bind(stem: str, lib):
         lib.pw_conv_dw_means.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, ci,
                                                               vp]
         lib.pw_conv_dw_means.restype = ci
-        lib.pw_conv_dw_product.argtypes = [vp, ci, vp, vp, ci, vp, vp] \
-            + [ci] * 6 + [vp]
+        lib.pw_conv_dw_product.argtypes = [vp, ci, vp, vp, vp, vp] \
+            + [ci] * 10 + [vp]
         lib.pw_conv_dw_product.restype = ci
         lib.pw_dw_smem_bytes.argtypes = [ci, ci]
         lib.pw_dw_smem_bytes.restype = ll
@@ -551,8 +571,7 @@ def _product(kind, a, w, bias):
     bf16 = int(w.dtype == torch.bfloat16)
     if bf16:
         wk = product_operand(w, kind)
-        plan = product_plan(rows, n, k, torch.cuda.get_device_properties(
-            a.device).multi_processor_count)
+        plan = product_plan(rows, n, k, sm_count(a.device))
         tile = [plan[key] for key in ("bn", "bm", "stages", "grid")]
     else:
         wk = (w.reshape(k, n) if kind == "fwd"
@@ -635,16 +654,38 @@ def conv_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
     return cnt
 
 
-def _dw_splits(n_rows: int, k: int, cout: int, bf16: bool):
-    """(splits, chunk) of the dW product's center reduction: enough slices
-    that about two CTAs per SM of an H100 run (the tensor-core kernel's
-    128 x 128 output tiles) or four (the f32 kernel's 64 x 64), each slice
-    a multiple of 32 centers and at least 256 of them."""
-    tile, target_blocks = (128, 264) if bf16 else (64, 528)
-    tiles = -(-k // tile) * -(-cout // tile)
-    splits = max(1, min(-(-target_blocks // tiles), n_rows // 256))
-    chunk = round_up(-(-n_rows // splits), 32)
-    return -(-n_rows // chunk), chunk
+def dw_product_plan(rows: int, k: int, cout: int, sms: int) -> dict:
+    """dW's product plan for dW (k, cout) = xbar (rows, k)^T . round(g),
+    as csrc/pointwise_conv_dw.cu's ``dw_plan`` lays it out: the forward's
+    tile rule with dW's k = 27*Cin as the rows and Cout as n (``bm``,
+    ``bn``, ``stages``, ``smem``, ``tiles``), the centers cut into
+    ``slices`` of ``chunk`` centers (a multiple of 64; the last slice may be
+    short): as many as fit ``DW_UNITS`` work units (at least one, at most
+    one per 64-center k-step), so that the plan and dW's bits never depend
+    on the card; ``units`` = tiles x slices, the persistent ``grid`` (at
+    most one CTA per unit and per SM of ``sms``), and ``part_bytes``: the
+    slices' f32 partial sums (none for one slice).  The kernel refuses a
+    launch whose slices or chunk differ from its own."""
+    tile = product_plan(k, cout, rows, sms)
+    k_steps = -(-rows // _PRODUCT_BK)
+    slices = max(1, min(k_steps, DW_UNITS // tile["tiles"]))
+    chunk_steps = -(-k_steps // slices)
+    slices = -(-k_steps // chunk_steps)
+    units = tile["tiles"] * slices
+    return dict(bm=tile["bm"], bn=tile["bn"], stages=tile["stages"],
+                smem=tile["smem"], tiles=tile["tiles"], k_steps=k_steps,
+                slices=slices, chunk=chunk_steps * _PRODUCT_BK, units=units,
+                grid=min(units, sms),
+                part_bytes=(slices * k * cout * 4 if slices > 1 else 0))
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_launch_plan(rows: int, k: int, cout: int, sms: int) -> tuple:
+    """(bn, bm, stages, slices, chunk, grid) of ``dw_product_plan``, as the
+    kernel takes them (cached: the wrapper asks once per shape)."""
+    plan = dw_product_plan(rows, k, cout, sms)
+    return tuple(plan[key] for key in ("bn", "bm", "stages", "slices",
+                                       "chunk", "grid"))
 
 
 def conv_dw_means(ctr, pts, feats, cnt, radius: float, tile_ptr=None,
@@ -696,37 +737,40 @@ def _check_dw_product(xbar, g):
 def conv_dw_product(xbar, g):
     """dW (27, Cin, Cout) f32 = xbar^T . round(g) over all rows: xbar (rows,
     27*Cin) in the matmul type (rows a multiple of 64; unit column stride,
-    a row stride that is a multiple of 8 in bf16), g (rows, Cout) f32,
-    rounded to xbar's type.  Launches the product kernels on CUDA tensors
-    (tensor cores in bf16, a split-K over the rows and a fixed-order
-    reduce), runs ``conv_dw_product_plain`` on CPU tensors."""
+    a row stride that is a multiple of 8 and a 16-byte aligned start in
+    bf16), g (rows, Cout) f32, rounded to xbar's type.  Launches the
+    product kernels on CUDA tensors (in bf16 g's pack, the TMA / wgmma
+    product over ``dw_product_plan``'s slices of the rows, and a
+    fixed-order reduce of the slices), runs ``conv_dw_product_plain`` on
+    CPU tensors."""
     if xbar.device.type == "cpu":
         return conv_dw_product_plain(xbar, g)
     if xbar.device.type != "cuda":
         raise ValueError(f"unsupported device {xbar.device}")
     cin, cout = _check_dw_product(xbar, g)
     bf16 = int(xbar.dtype == torch.bfloat16)
-    if xbar.stride(1) != 1 or xbar.stride(0) % (8 if bf16 else 1):
+    if xbar.stride(1) != 1 or xbar.stride(0) % (8 if bf16 else 1) \
+            or (bf16 and xbar.data_ptr() % 16):
         raise ValueError("xbar rows must be contiguous, their stride a "
-                         "multiple of 8 in bfloat16")
+                         "multiple of 8 and their start 16-byte aligned in "
+                         "bfloat16")
     _check_device([g], xbar.device)
     lib = build_libraries()["pointwise_conv_dw"]
     dev = xbar.device
     rows, k = xbar.shape
-    splits, chunk = _dw_splits(rows, k, cout, bf16)
-    # workspaces: round(g) with its rows padded, the slices' partial sums
-    ldg = round_up(cout, 8)
-    gb = (torch.empty((rows, ldg), dtype=torch.bfloat16, device=dev)
-          if bf16 else None)
-    part = (torch.empty((splits, k, cout), dtype=torch.float32, device=dev)
-            if splits > 1 else None)
+    plan = _dw_launch_plan(rows, k, cout, sm_count(dev))
+    # one workspace: round(g) K-major (Cout, rows) bf16, then the slices'
+    # partial sums (slices, K, Cout) f32
+    gt_bytes = round_up(cout * rows * 2, 256) if bf16 else 0
+    ws = torch.empty(gt_bytes + (plan[3] * k * cout * 4 if plan[3] > 1
+                                 else 0), dtype=torch.uint8, device=dev)
     dw = torch.empty((N_CELLS, cin, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         _launch("pw_conv_dw_product", lib.pw_conv_dw_product(
-            xbar.data_ptr(), xbar.stride(0), g.data_ptr(), _ptr(gb), ldg,
-            _ptr(part), dw.data_ptr(), rows, k, cout, splits, chunk, bf16,
-            stream))
+            xbar.data_ptr(), xbar.stride(0), g.data_ptr(), ws.data_ptr(),
+            ws.data_ptr() + gt_bytes, dw.data_ptr(), rows, k, cout, bf16,
+            *plan, stream))
     LAUNCHES["dw_product"] += 1
     return dw
 

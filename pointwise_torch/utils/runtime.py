@@ -32,11 +32,12 @@ from torch.profiler import ProfilerActivity
 
 from pointwise_torch import resolve_device
 
-# device-time families of a trace: (name, substring of the kernel name).  A
-# walk family includes its feature-pack kernel (and dX's its scale kernel),
-# dW's product its g-rounding kernel.
+# device-time families of a trace: (name, substring of the kernel name; a
+# family may take two entries).  A walk family includes its feature-pack
+# kernel (and dX's its scale kernel), dW's product its g-rounding kernel.
 KERNEL_FAMILIES = (("fwd_walk", "FwdMeans"), ("fwd_product", "FwdProduct"),
-                   ("dw_walk", "DwMeans"), ("dw_product", "pw_dw_product"),
+                   ("dw_walk", "DwMeans"), ("dw_product", "DwProduct"),
+                   ("dw_product", "pw_dw_product_pack"),
                    ("dw_reduce", "pw_dw_reduce"), ("dx_walk", "DxSums"),
                    ("dx_product", "DxProduct"),
                    ("counts", "pw_counts_kernel"))

@@ -411,6 +411,49 @@ def test_widths_walks_and_repeats(cuda, cin, precision):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("cin", [57, 64, 124, 127, 128, 254, tk.MAX_WIDTH])
+def test_tma_walk_widths_edges_and_repeats(cuda, cin):
+    # the forward's bf16 walk at NT = 16 (Cin > 56) stages its features by
+    # TMA into swizzled boxes: one to eight channel groups, a row tile with
+    # an empty CSR list (its centers masked), rows of 9 and 11 listed tiles
+    # (a last iteration of one tile); against the plain means, the dense
+    # and CSR walks identical bit for bit, two runs identical, counts equal
+    # to the counts kernel's, the same bits as dW's walk (the same means
+    # staged by cp.async), and the external-counts forward (cnt_in)
+    p = _scene_inputs(cuda, b=2, n=700, nc=600, cin=cin, seed=cin)
+    p["center_mask"][0, 64:128] = False
+    outs = {}
+    for csr in (False, True):
+        kw, _ = conv_layout(p["points"], p["features"], p["weights"],
+                            p["bias"], radius=0.3, mask=p["mask"],
+                            centers=p["centers"],
+                            center_mask=p["center_mask"],
+                            precision="bfloat16", csr=csr)
+        walk = (kw["ctr"], kw["pts"], kw["feats"], 0.3, kw["tile_ptr"],
+                kw["tile_idx"])
+        tk.reset_launches()
+        xbar, cnt = tk.conv_fwd_means(*walk)
+        again, _ = tk.conv_fwd_means(*walk)
+        ext = 2.0 * cnt + 1.0
+        xbar_e, _ = tk.conv_fwd_means(*walk, cnt_in=ext)
+        xbar_dw = tk.conv_dw_means(*walk[:3], cnt, 0.3, *walk[4:])
+        counts = tk.conv_counts(kw["ctr"], kw["pts"], 0.3, kw["tile_ptr"],
+                                kw["tile_idx"])
+        torch.cuda.synchronize()
+        assert tk.LAUNCHES["fwd_csr" if csr else "fwd_dense"] == 2
+        xbar_p, cnt_p = tk.conv_fwd_means_plain(*walk)
+        xbar_ep, _ = tk.conv_fwd_means_plain(*walk, cnt_in=ext)
+        if csr:
+            assert int(kw["tile_ptr"][2] - kw["tile_ptr"][1]) == 0
+        assert torch.equal(cnt, cnt_p) and torch.equal(cnt, counts)
+        assert cnt.sum() > 0 and cnt[0, 64:128].sum() == 0
+        assert torch.equal(xbar, again) and torch.equal(xbar, xbar_dw)
+        _close(xbar.float(), xbar_p.float(), "bfloat16")
+        _close(xbar_e.float(), xbar_ep.float(), "bfloat16")
+        outs[csr] = xbar
+    assert torch.equal(outs[False], outs[True])
+
+
 def test_width_refused_above_the_limit(cuda):
     wide = tk.MAX_WIDTH + 1
     p = _scene_inputs(cuda, b=1, n=200, nc=150, cin=wide, cout=8)
@@ -539,3 +582,43 @@ def test_product_kernel(cuda, kind, k_width, n, rows):
     assert torch.equal(y, again)
     assert torch.equal(shard, y[64:])
     _close(y, want, "float32")
+
+
+@pytest.mark.parametrize("rows", [64, 64 * 37, 64 * 133])
+@pytest.mark.parametrize("cin,cout", [(3, 124), (6, 3), (64, 64),
+                                      (124, 124), (124, 128),
+                                      (tk.MAX_WIDTH, tk.MAX_WIDTH),
+                                      (tk.MAX_WIDTH, 3), (3, tk.MAX_WIDTH)])
+def test_dw_product_kernel(cuda, cin, cout, rows):
+    # dW's TMA / wgmma product alone (xbar^T read M-major, g rounded and
+    # laid out K-major): K = 27 x Cin past a multiple of 64 and up to
+    # MAX_WIDTH, Cout tiles from 8 to 4 x 256, one 64-center k-step, 37
+    # or 133 k-steps in slices (a short last one at 133 and at 37 x 124
+    # wide; one slice where 108 or 864 tiles fill the card);
+    # NaN in xbar's row stride past K, which the kernel must not read; two
+    # runs identical bit for bit; f32 mode on the same slices
+    rng = np.random.RandomState(11 * cin + cout + rows)
+    k = 27 * cin
+    x = np.full((rows, tk.round_up(k, 8) + 8), np.nan, np.float32)
+    x[:, :k] = rng.standard_normal((rows, k))
+    x = torch.from_numpy(x).to(cuda)
+    xbar = x.bfloat16()[:, :k]
+    g = torch.from_numpy(rng.standard_normal((rows, cout)).astype(
+        np.float32)).to(cuda)
+    plan = tk.dw_product_plan(rows, k, cout, torch.cuda.get_device_properties(
+        cuda).multi_processor_count)
+    if rows > 64 and 2 * plan["tiles"] <= tk.DW_UNITS:
+        assert plan["slices"] > 1
+    if rows == 64 * 133 and plan["slices"] > 1:     # a short last slice
+        assert plan["slices"] * plan["chunk"] > rows
+    tk.reset_launches()
+    dw, again = tk.conv_dw_product(xbar, g), tk.conv_dw_product(xbar, g)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["dw_product"] == 2
+    assert dw.shape == (27, cin, cout) and bool(torch.isfinite(dw).all())
+    assert torch.equal(dw, again)
+    _close(dw, tk.conv_dw_product_plain(xbar, g), "float32")
+    if cin <= 124:
+        xf = x[:, :k]
+        _close(tk.conv_dw_product(xf, g), tk.conv_dw_product_plain(xf, g),
+               "float32")

@@ -1,10 +1,12 @@
 """The host side of the bf16 product kernel (csrc/pointwise_conv_product.cuh)
 on the CPU: the tile plan the wrapper hands the kernel (N tile from n, row
 tile, stages and shared memory from the N tile, the persistent grid from
-the rows and the SM count, W's L2 bytes), the B operand it lays out (W
-per cell, K-major) and the ptxas report reader; and the product timing
-tool's CPU path.  The kernel itself runs only on the card
-(tests/test_torch_cuda.py::test_product_kernel).
+the rows and the SM count, W's L2 bytes), dW's plan (the same tile rule,
+the centers' slices the same on every card, covering every row once), the
+B operand it lays out (W per cell, K-major) and the ptxas report reader;
+and the product timing tool's CPU path.  The kernel itself runs only on
+the card (tests/test_torch_cuda.py::test_product_kernel and
+::test_dw_product_kernel).
 """
 
 import numpy as np
@@ -71,6 +73,75 @@ def test_main_path_plans():
                                                           106_278_912)
 
 
+DW_SHAPES = [(64, 3, 3), (64, 6, 124), (64 * 37, 124, 124),
+             (64 * 37 + 64 * 9, 1024, 1024), (8 * 2048, 124, 124),
+             (32 * 1024, 6, 124), (32 * 1024, 124, 124),
+             (64 * 1024, 64, 64), (32 * 4096, 124, 124), (4096, 3, 1024)]
+
+
+@pytest.mark.parametrize("rows,cin,cout", DW_SHAPES)
+def test_dw_plan_is_the_same_on_every_card(rows, cin, cout):
+    # the slices (and so dW's bits) never depend on the SM count; only the
+    # persistent grid does
+    k = 27 * cin
+    plans = [tk.dw_product_plan(rows, k, cout, sms)
+             for sms in (1, 16, 78, 114, 132, 144, 1000)]
+    for sms, plan in zip((1, 16, 78, 114, 132, 144, 1000), plans):
+        assert plan["grid"] == min(plan["units"], sms) >= 1
+        assert {key: v for key, v in plan.items() if key != "grid"} \
+            == {key: v for key, v in plans[0].items() if key != "grid"}
+
+
+@pytest.mark.parametrize("cout", [1, 3, 8, 9, 64, 124, 128, 129, 256, 300,
+                                  1024])
+@pytest.mark.parametrize("cin", [3, 6, 64, 124, 1024])
+def test_dw_plan_tile_and_shared_memory(cin, cout):
+    # dW's rows (27 * Cin) take the forward's tile rule by n = Cout, so the
+    # kernel's shared memory stays under the 227 KB a block may use
+    k = 27 * cin
+    plan = tk.dw_product_plan(64 * 37, k, cout, 132)
+    tile = tk.product_plan(k, cout, 64 * 37, 132)
+    for key in ("bm", "bn", "stages", "smem", "tiles"):
+        assert plan[key] == tile[key]
+    assert plan["smem"] <= _BLOCK_SMEM
+    assert plan["tiles"] == -(-k // plan["bm"]) * -(-cout // plan["bn"])
+
+
+@pytest.mark.parametrize("rows,cin,cout", DW_SHAPES)
+def test_dw_slices_cover_every_row_once(rows, cin, cout):
+    plan = tk.dw_product_plan(rows, 27 * cin, cout, 132)
+    chunk, slices = plan["chunk"], plan["slices"]
+    assert chunk % 64 == 0 and plan["k_steps"] == -(-rows // 64)
+    seen = np.zeros(rows, np.int64)
+    for s in range(slices):
+        beg, end = s * chunk, min((s + 1) * chunk, rows)
+        assert end > beg                       # no empty slice
+        seen[beg:end] += 1
+    assert (seen == 1).all() and slices * chunk >= rows > (slices - 1) * chunk
+    assert plan["units"] == plan["tiles"] * slices
+    # as many slices as fit the fixed unit target, at most one a k-step
+    assert slices <= plan["k_steps"]
+    assert plan["units"] <= tk.DW_UNITS or slices == 1
+    assert plan["part_bytes"] == (slices * 27 * cin * cout * 4
+                                  if slices > 1 else 0)
+
+
+def test_dw_main_path_plans():
+    # dW's product at a segmentation step (8 x 4096 centers; ModelNet's
+    # 32 x 1024 the same), its first layer, ShapeNetPart's 8 x 2048 and
+    # the 64-wide conv: one wave of at most 132 units
+    def key(rows, cin, cout):
+        p = tk.dw_product_plan(rows, 27 * cin, cout, 132)
+        return (p["bm"], p["bn"], p["stages"], p["tiles"], p["slices"],
+                p["chunk"], p["units"], p["grid"])
+    assert key(32_768, 124, 124) == (256, 128, 4, 14, 9, 3648, 126, 126)
+    assert key(32_768, 6, 124) == (256, 128, 4, 1, 128, 256, 128, 128)
+    assert key(16_384, 124, 124) == (256, 128, 4, 14, 9, 1856, 126, 126)
+    assert key(65_536, 64, 64) == (256, 64, 5, 7, 18, 3648, 126, 126)
+    assert tk.dw_product_plan(32_768, 3348, 124, 132)["part_bytes"] \
+        == 9 * 3348 * 124 * 4
+
+
 def _weights(cin, cout, seed):
     rng = np.random.RandomState(seed)
     return torch.from_numpy(rng.standard_normal(
@@ -130,14 +201,24 @@ ptxas info    : Used 90 registers, 16 bytes smem, 384 bytes cmem[0]
 
 def test_time_products_on_the_cpu():
     recs = time_products.main(["--device", "cpu", "--shape", "fwd:128:6:5",
-                               "--shape", "dx:192:3:7"])
+                               "--shape", "dx:192:3:7", "--shape",
+                               "dw:192:6:5"])
     assert [(r["kind"], r["k"], r["n"]) for r in recs] == [("fwd", 162, 5),
-                                                           ("dx", 189, 3)]
+                                                           ("dx", 189, 3),
+                                                           ("dw", 162, 5)]
     for r in recs:
         assert r["ms"] == r["library_ms"] == "not measured"
+        assert r["host_us"] == r["encode_us"] == "not measured"
+        assert r["kernels_us"] == "not measured"
         assert r["max_rel_err"] <= time_products.MAX_REL_ERR
         assert r["bound_by"] == "bytes" and r["bound_ms"] > 0
+    # dW: xbar and g (f32) read, dW (f32) written
+    assert recs[2]["bytes"] == 192 * 162 * 2 + 192 * 5 * 4 + 162 * 5 * 4
+    assert {s.split(":")[0] for s in time_products.DEFAULT_SHAPES} \
+        == {"fwd", "dx", "dw"}
     with pytest.raises(ValueError, match="rows"):
         time_products.parse_shape("fwd:100:6:5")
+    with pytest.raises(ValueError, match="rows"):
+        time_products.parse_shape("dw:100:6:5")
     with pytest.raises(ValueError, match="not"):
-        time_products.parse_shape("dw:128:6:5")
+        time_products.parse_shape("dy:128:6:5")

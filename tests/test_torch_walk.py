@@ -18,8 +18,8 @@ replaced by the column's scale round(1/max(cnt, 1)), times round(g) (in f32
 mode three bf16 terms of each, nine exact products), accumulated in f32.
 It is held to ``_dx_sums_plain``, the f32 sums that ``conv_dx_sums_plain``
 rounds.  ``mirror_dw_product`` repeats dW's tensor-core product: the
-wrapper's split-K slices of the centers, 16-center k-steps of xbar^T .
-round(g) in f32, the slices added in ascending order.
+slices of the centers of ``dw_product_plan``, 16-center k-steps (the k16
+MMAs) of xbar^T . round(g) in f32, the slices added in ascending order.
 
 Tolerances: counts are integers and must be equal.  Sums: the mirror adds
 the same exact products as the plain walk (0/1 x an exact bf16 term, or in
@@ -360,12 +360,15 @@ def test_three_term_split_of_the_scales_is_exact():
 
 def mirror_dw_product(xbar, g):
     """dW (27, Cin, Cout) as the tensor-core product forms it: the rows in
-    the wrapper's slices, each slice's 16-row k-steps of xbar^T . round(g)
-    accumulated in f32, the slices added in ascending order."""
+    ``dw_product_plan``'s slices (the same on any card: 132 SMs or 114),
+    each slice's 16-row k-steps of xbar^T . round(g) accumulated in f32,
+    the slices added in ascending order."""
     rows, k = xbar.shape
     cout = g.shape[1]
-    splits, chunk = tk._dw_splits(rows, k, cout,
-                                  xbar.dtype == torch.bfloat16)
+    plan = tk.dw_product_plan(rows, k, cout, 132)
+    assert plan == dict(tk.dw_product_plan(rows, k, cout, 114),
+                        grid=plan["grid"])
+    splits, chunk = plan["slices"], plan["chunk"]
     x, gb = xbar.float(), g.to(xbar.dtype).float()
     total = None
     for s in range(splits):
@@ -459,3 +462,4 @@ def test_dx_sums_and_product_match_jax_vjp(precision):
     else:
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * scale)
+
