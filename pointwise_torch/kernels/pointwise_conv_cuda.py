@@ -33,7 +33,8 @@ of each CUDA source).  Each walks, for each row tile of ``TILE`` points, a
 list of ``TILE``-point tiles of the other side: every tile (the dense walk,
 ``tile_ptr=tile_idx=None``) or the bbox-adjacent ones from
 ``tile_adjacency`` (the CSR walk).  ``LAUNCHES`` counts the launches of each
-kernel and walk mode.
+kernel and walk mode, ``HOST_SYNCS`` the program's calls that block the host
+until the card catches up.
 
 Shared contract (all padded by the op layer, ops/pointwise_conv.py):
   ctr   (B, Ncp, 3) f32  centers; padding and masked centers at -SENTINEL
@@ -123,6 +124,23 @@ LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "fwd_product": 0,
             "dx_dense": 0, "dx_csr": 0, "dx_product": 0,
             "counts_dense": 0, "counts_csr": 0,
             "fwd_ext_dense": 0, "fwd_ext_csr": 0}
+# The program's calls that block the host on the card, by site; each site
+# calls ``count_sync`` once per blocking call, on any device (the CPU tests
+# see the same counts as the card):
+#   tile_boxes         the upload of the sentinel bound in
+#                      ``_row_tile_boxes`` (a pageable copy of a Python
+#                      scalar; two a CSR tile list)
+#   tile_lists         the nonzero that sizes a CSR tile list
+#                      (``_boxes_adjacency``)
+#   engine_put         the streaming engine's pageable copy of a chunk's
+#                      index array to the device
+#   engine_resident    its upload of the resident scene (xyz, features)
+#   engine_fetch       its fetch of a chunk's logits
+#   subblock_cap       ``_subblock_conv``'s branch on the fullest group
+#   check_coordinates  ``_check_coordinates``' test of the coordinates
+HOST_SYNCS = {"tile_boxes": 0, "tile_lists": 0, "engine_put": 0,
+              "engine_resident": 0, "engine_fetch": 0, "subblock_cap": 0,
+              "check_coordinates": 0}
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
 # compiler's resource report (registers, shared memory, spills).  Every
@@ -149,8 +167,16 @@ def sm_count(dev) -> int:
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    """Zero ``LAUNCHES`` and ``HOST_SYNCS``."""
+    for counter in (LAUNCHES, HOST_SYNCS):
+        for k in counter:
+            counter[k] = 0
+
+
+def count_sync(site: str) -> None:
+    """Count one call at ``site`` (a key of ``HOST_SYNCS``) that blocks the
+    host until the card has run what was queued before it."""
+    HOST_SYNCS[site] += 1
 
 
 def _nvcc() -> str:
@@ -1054,6 +1080,7 @@ def _row_tile_boxes(pts, tile: int):
     B, N, _ = pts.shape
     t = pts.reshape(B, N // tile, tile, 3)
     v = torch.abs(t) < _SENTINEL_CUT
+    count_sync("tile_boxes")      # a scalar copied from pageable memory
     big = torch.tensor(1.0e9, dtype=torch.float32, device=pts.device)
     return (torch.where(v, t, big).amin(dim=2),
             torch.where(v, t, -big).amax(dim=2))
@@ -1088,6 +1115,7 @@ def _boxes_adjacency(radius: float, lo_r, hi_r, lo_c, hi_c,
         raise ValueError(f"{B}x{nR}x{nC} tile pairs overflow int32 offsets")
     tile_ptr = torch.zeros(B * nR + 1, dtype=torch.int32, device=adj.device)
     tile_ptr[1:] = torch.cumsum(adj.sum(dim=-1).reshape(-1), 0)
+    count_sync("tile_lists")      # nonzero's length is read on the host
     tile_idx = (torch.nonzero(adj.reshape(-1))[:, 0] % nC).to(torch.int32)
     return tile_ptr, tile_idx.contiguous()
 

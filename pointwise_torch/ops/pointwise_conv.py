@@ -51,6 +51,7 @@ from pointwise_torch.kernels.pointwise_conv_cuda import (
     conv_dw,
     conv_dx,
     conv_fwd,
+    count_sync,
     round_up,
     tile_adjacency,
 )
@@ -118,6 +119,7 @@ def _check_coordinates(points, mask, centers, center_mask):
             continue
         real = p.float() if m is None else torch.where(
             m.bool()[..., None], p.float(), 0.0)
+        count_sync("check_coordinates")
         if not bool(torch.all(torch.abs(real) < _SENTINEL_CUT)):
             raise ValueError(
                 f"pointwise_conv: real (unmasked) {name}coordinates must "
@@ -252,6 +254,7 @@ def _subblock_conv(points, features, weights, bias, *, radius, mask, n_sub,
            ).all(dim=-1) & valid[:, None]                         # (B, S, N)
     # a host branch on one device scalar: this syncs with the device, as
     # the JAX op's lax.cond does not
+    count_sync("subblock_cap")
     if int(inb.sum(dim=-1).max()) > cap:
         y = pointwise_conv(points, features, weights, bias, radius=radius,
                            mask=mask, **common)

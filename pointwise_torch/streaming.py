@@ -33,9 +33,11 @@ import torch
 import torch.distributed as dist
 
 from pointwise_torch import resolve_device
-from pointwise_torch.kernels.pointwise_conv_cuda import SENTINEL
+from pointwise_torch.kernels.pointwise_conv_cuda import (HOST_SYNCS,
+                                                        SENTINEL, count_sync)
 from pointwise_torch.native import GridIndex, morton_codes
 from pointwise_torch.parallel.mesh import all_gather_cat, all_reduce
+from pointwise_torch.utils.runtime import span
 from pointwise_torch.utils.spatial import morton_code
 
 DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
@@ -68,8 +70,15 @@ def _resident_scene(xyz, features, dev, mesh, scene_axis):
             [features, np.zeros((pad, features.shape[1]), np.float32)])
         lo = mesh.index(scene_axis) * rows
         hi = lo + rows
-    return (torch.from_numpy(xyz[lo:hi]).to(dev),
-            torch.from_numpy(features[lo:hi]).to(dev), lo)
+    return (_upload(xyz[lo:hi], dev, "engine_resident"),
+            _upload(features[lo:hi], dev, "engine_resident"), lo)
+
+
+def _upload(a, dev, site):
+    """Numpy array ``a`` as a tensor on ``dev``: a copy from pageable
+    memory, which blocks the host (one ``HOST_SYNCS[site]``)."""
+    count_sync(site)
+    return torch.from_numpy(a).to(dev)
 
 
 def _stage_owned(first, group, sx, sf, cand, centers, n0):
@@ -290,9 +299,15 @@ def stream_apply_layered(
     scene and merged up otherwise.
 
     ``events``: optional dict the engine fills with phase wall-times
-    (presort_s, build_s, pack_s, wait_packer_s, dispatch_s, flush_fetch_s,
-    flush_scatter_s, total_s), n_jobs and resident_bytes (the bytes of the
-    scene this rank holds on its device).
+    (presort_s, grid_s, build_s, plan_s, pack_s, wait_packer_s, dispatch_s,
+    flush_fetch_s, flush_scatter_s, total_s), n_jobs, resident_bytes (the
+    bytes of the scene this rank holds on its device) and host_syncs (the
+    calls of this one that blocked the host on the device, ``HOST_SYNCS``'s
+    increase).  Each phase of the calling thread is a ``runtime.span``
+    (engine.presort, engine.grid, engine.build, engine.plan,
+    engine.wait_packer, engine.dispatch, engine.fetch, engine.scatter), so
+    a profiler's trace shows it; the packer thread's pack_s is timed only,
+    since a range there would claim the calling thread's idle time.
 
     ``device``: where the tiles run (default the card); under a mesh, the
     mesh's device.
@@ -323,21 +338,23 @@ def stream_apply_layered(
         n_data, d_index = mesh.data, mesh.index("data")
     ev_t = collections.defaultdict(float)
     t_start = time.perf_counter()
+    syncs0 = sum(HOST_SYNCS.values())
 
-    xyz_in = np.asarray(xyz, np.float32)
-    features_in = np.asarray(features, np.float32)
-    # GLOBAL morton pre-sort, once: every per-tile candidate set is then a
-    # sorted-index array already in morton order.  Outputs are written back
-    # through ``order``.
-    order = np.argsort(morton_codes(xyz_in), kind="stable")
-    xyz = np.ascontiguousarray(xyz_in[order])
-    features = np.ascontiguousarray(features_in[order])
-    radii = [float(r) for r in radii]
-    # halos[l] = receptive field remaining BEFORE layer l
-    halos = [sum(radii[l:]) for l in range(len(radii))]
-    L = len(radii)
-    ev_t["presort_s"] = time.perf_counter() - t_start
-    grid = GridIndex(xyz, tile_size)
+    with span("engine.presort", ev_t, "presort_s"):
+        xyz_in = np.asarray(xyz, np.float32)
+        features_in = np.asarray(features, np.float32)
+        # GLOBAL morton pre-sort, once: every per-tile candidate set is then
+        # a sorted-index array already in morton order.  Outputs are written
+        # back through ``order``.
+        order = np.argsort(morton_codes(xyz_in), kind="stable")
+        xyz = np.ascontiguousarray(xyz_in[order])
+        features = np.ascontiguousarray(features_in[order])
+        radii = [float(r) for r in radii]
+        # halos[l] = receptive field remaining BEFORE layer l
+        halos = [sum(radii[l:]) for l in range(len(radii))]
+        L = len(radii)
+    with span("engine.grid", ev_t, "grid_s"):
+        grid = GridIndex(xyz, tile_size)
 
     def build_job(c):
         lo = grid.origin + c.astype(np.float32) * tile_size
@@ -349,85 +366,95 @@ def stream_apply_layered(
 
     # schedule building is pure host work (native box queries + sorts, all
     # GIL-releasing) — build every tile's schedule in parallel
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
+    with span("engine.build", ev_t, "build_s"), \
+            concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
         jobs = [j for j in ex.map(build_job, grid.nonempty_cells())
                 if j is not None]
-    ev_t["build_s"] = time.perf_counter() - t0
 
-    ladder = tuple(sorted({128, 256} | set(buckets)))
+    # grouping, coalescing, the length profiles, the resident scene and
+    # the output
+    with span("engine.plan", ev_t, "plan_s"):
+        ladder = tuple(sorted({128, 256} | set(buckets)))
 
-    def pad_len(n):
-        # fine-grained above the ladder top: power-of-2 jumps waste up to 2x
-        # padded compute on big tiles; 8K-multiples bound the waste to <6%.
-        if n <= ladder[-1]:
-            return _bucket_for(n, ladder)
-        return int(-(-n // 8192) * 8192)
+        def pad_len(n):
+            # fine-grained above the ladder top: power-of-2 jumps waste up
+            # to 2x padded compute on big tiles; 8K-multiples bound the
+            # waste to <6%.
+            if n <= ladder[-1]:
+                return _bucket_for(n, ladder)
+            return int(-(-n // 8192) * 8192)
 
-    # Grouping: the per-group schedule is the elementwise MAX over members,
-    # so a tile that runs one per chunk anyway (tbs == 1 at its bucket) gets
-    # its OWN padded schedule (tuple key) instead of padding up to the
-    # bucket's maxima; small tiles keep the bucket key (int) so chunks stay
-    # full.  Not under a data axis of more than one rank: it rounds every
-    # chunk up to n_data tiles, which would leave per-schedule chunks
-    # mostly empty where bucket groups pack them full.
-    groups: dict = {}
-    for job in jobs:
-        counts = job[3]
-        b = _bucket_for(int(counts[0]), buckets)
-        forced_single = (8192 * tile_batch) // b <= 1
-        key = (tuple(pad_len(int(c)) for c in counts)
-               if (forced_single and n_data == 1) else b)
-        groups.setdefault(key, []).append(job)
-    _coalesce(groups)
+        # Grouping: the per-group schedule is the elementwise MAX over
+        # members, so a tile that runs one per chunk anyway (tbs == 1 at its
+        # bucket) gets its OWN padded schedule (tuple key) instead of padding
+        # up to the bucket's maxima; small tiles keep the bucket key (int) so
+        # chunks stay full.  Not under a data axis of more than one rank: it
+        # rounds every chunk up to n_data tiles, which would leave
+        # per-schedule chunks mostly empty where bucket groups pack them
+        # full.
+        groups: dict = {}
+        for job in jobs:
+            counts = job[3]
+            b = _bucket_for(int(counts[0]), buckets)
+            forced_single = (8192 * tile_batch) // b <= 1
+            key = (tuple(pad_len(int(c)) for c in counts)
+                   if (forced_single and n_data == 1) else b)
+            groups.setdefault(key, []).append(job)
+        _coalesce(groups)
 
-    scene_xyz, scene_fts, first = _resident_scene(xyz, features, dev, mesh,
-                                                  scene_axis)
-    stage = (_stage if scene_axis is None else functools.partial(
-        _stage_owned, first, mesh.group(scene_axis)))
-    ev_t["resident_bytes"] = sum(t.numel() * t.element_size()
-                                 for t in (scene_xyz, scene_fts))
+        scene_xyz, scene_fts, first = _resident_scene(xyz, features, dev,
+                                                      mesh, scene_axis)
+        stage = (_stage if scene_axis is None else functools.partial(
+            _stage_owned, first, mesh.group(scene_axis)))
+        ev_t["resident_bytes"] = sum(t.numel() * t.element_size()
+                                     for t in (scene_xyz, scene_fts))
 
-    meta = {}
-    for b in sorted(groups, key=_gorder):
-        p0 = b if isinstance(b, int) else b[0]
-        tbs = max(1, min(tile_batch, (8192 * tile_batch) // p0))
-        tbs = -(-tbs // n_data) * n_data       # divisible by the data axis
-        if isinstance(b, int):
-            gmax = np.max(np.stack([j[3] for j in groups[b]]), axis=0)
-            lengths = tuple(pad_len(int(m)) for m in gmax)
-        else:
-            lengths = b       # per-schedule group: the key IS the schedule
-        if length_profiles is not None:
-            # A profile entry that elementwise covers this scene is reused
-            # (extra slots are sentinel-dead -> still exact); on a miss the
-            # entry is merged UP.  A stale entry from another config (other
-            # radii -> other schedule length, other tbs) is replaced.
-            prof = length_profiles.get(b)
-            covered_elsewhere = False
-            if (prof is not None and prof[0] == tbs
-                    and len(prof[1]) == len(lengths)):
-                lengths = tuple(max(int(p), l)
-                                for p, l in zip(prof[1], lengths))
-            elif prof is None and not isinstance(b, int):
-                # tuple-keyed groups: reuse the cheapest existing entry that
-                # elementwise covers this schedule
-                best = None
-                for k2, (t2, l2) in length_profiles.items():
-                    if (not isinstance(k2, int) and t2 == tbs
-                            and len(l2) == len(lengths)
-                            and all(a >= c for a, c in zip(l2, lengths))):
-                        cost = _sched_cost(l2)
-                        if best is None or cost < best[0]:
-                            best = (cost, tuple(int(x) for x in l2))
-                if best is not None:
-                    lengths = best[1]
-                    covered_elsewhere = True
-            # a schedule served by ANOTHER key's covering entry is not
-            # re-inserted under its own key, so the profile stays bounded
-            if not covered_elsewhere:
-                length_profiles[b] = (tbs, lengths)
-        meta[b] = (tbs, lengths)
+        meta = {}
+        for b in sorted(groups, key=_gorder):
+            p0 = b if isinstance(b, int) else b[0]
+            tbs = max(1, min(tile_batch, (8192 * tile_batch) // p0))
+            tbs = -(-tbs // n_data) * n_data   # divisible by the data axis
+            if isinstance(b, int):
+                gmax = np.max(np.stack([j[3] for j in groups[b]]), axis=0)
+                lengths = tuple(pad_len(int(m)) for m in gmax)
+            else:
+                lengths = b   # per-schedule group: the key IS the schedule
+            if length_profiles is not None:
+                # A profile entry that elementwise covers this scene is
+                # reused (extra slots are sentinel-dead -> still exact); on a
+                # miss the entry is merged UP.  A stale entry from another
+                # config (other radii -> other schedule length, other tbs) is
+                # replaced.
+                prof = length_profiles.get(b)
+                covered_elsewhere = False
+                if (prof is not None and prof[0] == tbs
+                        and len(prof[1]) == len(lengths)):
+                    lengths = tuple(max(int(p), l)
+                                    for p, l in zip(prof[1], lengths))
+                elif prof is None and not isinstance(b, int):
+                    # tuple-keyed groups: reuse the cheapest existing entry
+                    # that elementwise covers this schedule
+                    best = None
+                    for k2, (t2, l2) in length_profiles.items():
+                        if (not isinstance(k2, int) and t2 == tbs
+                                and len(l2) == len(lengths)
+                                and all(a >= c
+                                        for a, c in zip(l2, lengths))):
+                            cost = _sched_cost(l2)
+                            if best is None or cost < best[0]:
+                                best = (cost, tuple(int(x) for x in l2))
+                    if best is not None:
+                        lengths = best[1]
+                        covered_elsewhere = True
+                # a schedule served by ANOTHER key's covering entry is not
+                # re-inserted under its own key, so the profile stays bounded
+                if not covered_elsewhere:
+                    length_profiles[b] = (tbs, lengths)
+            meta[b] = (tbs, lengths)
+
+        out = np.zeros((len(xyz), out_dim), np.float32)
+        done = 0
+        pending: collections.deque = collections.deque()
 
     def pack_chunks(q):
         """Producer thread: pad + pack every chunk's host arrays off the
@@ -466,51 +493,44 @@ def stream_apply_layered(
         else:
             q.put(None)
 
-    out = np.zeros((len(xyz), out_dim), np.float32)
-    done = 0
-    pending: collections.deque = collections.deque()
-
     def flush():
         nonlocal done
-        t0 = time.perf_counter()
-        logits_d, interiors, b = pending.popleft()
-        if n_data > 1:              # every rank's rows, in data-index order
-            logits_d = all_gather_cat(logits_d, mesh.group("data"), 0)
-        logits = logits_d.float().cpu().numpy()     # device->host barrier
-        ev_t["flush_fetch_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        for t, interior_ids in enumerate(interiors):
-            # interior ids live in SORTED index space; map back through the
-            # morton pre-sort permutation into the caller's point order
-            out[order[interior_ids]] = logits[t, : len(interior_ids)]
-        ev_t["flush_scatter_s"] += time.perf_counter() - t0
+        with span("engine.fetch", ev_t, "flush_fetch_s"):
+            logits_d, interiors, b = pending.popleft()
+            if n_data > 1:          # every rank's rows, in data-index order
+                logits_d = all_gather_cat(logits_d, mesh.group("data"), 0)
+            count_sync("engine_fetch")
+            logits = logits_d.float().cpu().numpy()  # device->host barrier
+        with span("engine.scatter", ev_t, "flush_scatter_s"):
+            for t, interior_ids in enumerate(interiors):
+                # interior ids live in SORTED index space; map back through
+                # the morton pre-sort permutation into the caller's order
+                out[order[interior_ids]] = logits[t, : len(interior_ids)]
         done += len(interiors)
         if progress:
             progress(done, len(jobs), b)
 
     def put(a):
-        return torch.from_numpy(a).to(dev)
+        return _upload(a, dev, "engine_put")
 
     q: queue_mod.Queue = queue_mod.Queue(maxsize=3)
     packer = threading.Thread(target=pack_chunks, args=(q,), daemon=True)
     packer.start()
     try:
         while True:
-            t0 = time.perf_counter()
-            item = q.get()
-            ev_t["wait_packer_s"] += time.perf_counter() - t0
+            with span("engine.wait_packer", ev_t, "wait_packer_s"):
+                item = q.get()
             if item is None:
                 break
             if isinstance(item, BaseException):
                 raise item
             b, lengths, cand_h, ctr_h, cnt, sels, skips, interiors = item
-            t0 = time.perf_counter()
-            pts_d, fts_d = stage(scene_xyz, scene_fts, put(cand_h),
-                                 put(ctr_h), put(cnt[:, 0]))
-            logits_d = apply_fn(pts_d, fts_d, put(cnt),
-                                tuple(put(x) for x in sels),
-                                tuple(put(x) for x in skips), lengths)
-            ev_t["dispatch_s"] += time.perf_counter() - t0
+            with span("engine.dispatch", ev_t, "dispatch_s"):
+                pts_d, fts_d = stage(scene_xyz, scene_fts, put(cand_h),
+                                     put(ctr_h), put(cnt[:, 0]))
+                logits_d = apply_fn(pts_d, fts_d, put(cnt),
+                                    tuple(put(x) for x in sels),
+                                    tuple(put(x) for x in skips), lengths)
             pending.append((logits_d, interiors, b))
             if len(pending) >= 2:
                 flush()
@@ -531,4 +551,5 @@ def stream_apply_layered(
     ev_t["n_jobs"] = len(jobs)
     if events is not None:
         events.update({k: round(float(v), 4) for k, v in ev_t.items()})
+        events["host_syncs"] = sum(HOST_SYNCS.values()) - syncs0
     return out

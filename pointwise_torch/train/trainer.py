@@ -58,6 +58,7 @@ import torch.distributed as dist
 from pointwise_torch.convert import numbered_dirs
 from pointwise_torch.parallel.mesh import all_reduce, broadcast_, shard_batch
 from pointwise_torch.train.configs import OptimizerConfig
+from pointwise_torch.utils.runtime import span
 
 _CKPT = re.compile(r"ckpt_(\d+)\.pt")
 
@@ -160,7 +161,11 @@ class Trainer:
     def step(self, batch: dict, seed: int) -> dict:
         """One update; returns the loss_fn's metrics plus ``loss`` and
         ``grad_norm`` (before clipping) as device scalars.  Under a mesh
-        ``batch`` is the global batch and the metrics are global means."""
+        ``batch`` is the global batch and the metrics are global means.
+        Its phases are ``runtime.span``s for a profiler's trace:
+        train.forward (the dropout seed and the loss function),
+        train.backward, train.clip and train.optimizer (the schedule and
+        AdamW)."""
         self.model.train()
         gen, drop_seed = self._randomness(seed)
         if self.mesh is not None:
@@ -171,10 +176,12 @@ class Trainer:
             batch = shard_batch(self.mesh, batch)
         devices = [self.device] if self.device.type == "cuda" else []
         with torch.random.fork_rng(devices=devices):
-            torch.manual_seed(drop_seed)
-            res = self.loss_fn(self.model, batch, gen, True)
-            self.optimizer.zero_grad(set_to_none=False)
-            res[0].backward()
+            with span("train.forward"):
+                torch.manual_seed(drop_seed)
+                res = self.loss_fn(self.model, batch, gen, True)
+            with span("train.backward"):
+                self.optimizer.zero_grad(set_to_none=False)
+                res[0].backward()
         grads = []
         for p in self.params:
             if p.grad is None:
@@ -184,10 +191,12 @@ class Trainer:
             loss, metrics = res
         else:
             loss, metrics, _ = self._sum_over_mesh(res, grads)
-        norm = clip_by_global_norm(grads, self.opt_cfg.grad_clip)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.schedule(self.step_count)
-        self.optimizer.step()
+        with span("train.clip"):
+            norm = clip_by_global_norm(grads, self.opt_cfg.grad_clip)
+        with span("train.optimizer"):
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.step_count)
+            self.optimizer.step()
         self.step_count += 1
         out = {k: v.detach() for k, v in metrics.items()}
         out.update(loss=loss.detach(), grad_norm=norm.detach())

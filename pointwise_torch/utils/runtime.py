@@ -11,6 +11,11 @@ two streams may overlap, and a sum would count that time twice.  When the
 profiler sees no device time (the CPU, or a card it cannot trace) the
 helpers say so (``None``, "not measured") instead of guessing.
 
+``span`` names a phase of the program on the profiler's clock: the
+streaming engine and the trainer open one around each phase, so that a
+trace can put the device's idle time down to the phase that kept the host
+busy.  It opens a profiler range only while a profiler runs.
+
 ``honor_platform_env`` and ``enable_compile_cache`` of the JAX module have
 no counterpart: they work around the JAX platform plugin and its compile
 cache, while the port's kernels are built once into kernels/_build/.
@@ -28,7 +33,7 @@ import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity
+from torch.profiler import ProfilerActivity, record_function
 
 from pointwise_torch import resolve_device
 
@@ -96,6 +101,23 @@ def timed(label: str, sink=None, device="cuda"):
     sync(dev)
     dt = time.perf_counter() - t0
     (sink or print)(f"# [{label}] {dt * 1e3:.1f} ms")
+
+
+@contextlib.contextmanager
+def span(name: str, into=None, key: str | None = None):
+    """One phase of the program: adds the block's wall seconds to
+    ``into[key]`` when ``into`` is given (a ``defaultdict(float)``), and
+    while a profiler runs opens ``record_function(name)`` around it, so the
+    phase lies on the trace's clock beside the kernels it launched.  With
+    no profiler running it opens nothing (one check per use)."""
+    t0 = time.perf_counter()
+    if torch.autograd._profiler_enabled():
+        with record_function(name):
+            yield
+    else:
+        yield
+    if into is not None:
+        into[key] += time.perf_counter() - t0
 
 
 def _activities(dev):
