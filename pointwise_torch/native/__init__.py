@@ -1,10 +1,11 @@
 """ctypes bindings for the native grid-hash spatial index (gridhash.cpp).
 
-A copy of ``pointwise_tpu.native`` for the PyTorch package, with one change:
-the shared library is built at first use into ``native/_build/`` (ignored by
-git), never next to the source.  Without a compiler it falls back to a pure
-NumPy implementation (identical results, slower): this is host code, not a
-device path.
+A copy of ``pointwise_tpu.native`` for the PyTorch package, with two
+changes: the shared library is built at first use into ``native/_build/``
+(ignored by git), never next to the source; and it also builds the streaming
+engine's schedule (``presort``, ``GridIndex.nested_schedule``).  Without a
+compiler it falls back to a pure NumPy implementation (identical results,
+slower): this is host code, not a device path.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def _load():
         try:
             subprocess.run(
                 ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                 "-o", tmp, _SRC],
+                 "-pthread", "-o", tmp, _SRC],
                 check=True, capture_output=True,
             )
             os.replace(tmp, so)
@@ -69,6 +70,18 @@ def _load():
     lib.gh_query.restype = ctypes.c_int64
     lib.gh_morton.argtypes = [f32p, ctypes.c_int64, f32p, f32p, u32p]
     lib.gh_morton.restype = None
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C")
+    u8p = np.ctypeslib.ndpointer(np.uint8, flags="C")
+    lib.gh_presort.argtypes = [f32p, f32p, ctypes.c_int64, ctypes.c_int64,
+                               ctypes.c_int, f32p, f32p, i64p, f32p, f32p]
+    lib.gh_presort.restype = None
+    lib.gh_sched_mark.argtypes = [f32p, f32p, ctypes.c_float, i32p, i32p,
+                                  i32p, ctypes.c_int64, ctypes.c_int32, f32p,
+                                  f32p, u8p, i32p, i64p]
+    lib.gh_sched_mark.restype = None
+    lib.gh_sched_emit.argtypes = [u8p, i64p, ctypes.c_int32, i32p, i32p,
+                                  i32p, i32p]
+    lib.gh_sched_emit.restype = None
     _lib = lib
     return _lib
 
@@ -78,13 +91,19 @@ def available() -> bool:
 
 
 class GridIndex:
-    """Uniform spatial grid over one point set."""
+    """Uniform spatial grid over one point set.
 
-    def __init__(self, points: np.ndarray, cell_size: float):
+    ``bbox``: the points' (min, max) per axis when the caller has them
+    already (``presort`` returns them), so that the points are not reduced
+    again."""
+
+    def __init__(self, points: np.ndarray, cell_size: float, bbox=None):
         self.points = np.ascontiguousarray(points, np.float32)
         n = len(self.points)
-        self.origin = self.points.min(axis=0).astype(np.float32)
-        extent = self.points.max(axis=0) - self.origin
+        if bbox is None:
+            bbox = self.points.min(axis=0), self.points.max(axis=0)
+        self.origin = np.asarray(bbox[0], np.float32)
+        extent = np.asarray(bbox[1], np.float32) - self.origin
         self.h = float(cell_size)
         self.dims = np.maximum(
             (extent / self.h).astype(np.int32) + 1, 1
@@ -107,8 +126,10 @@ class GridIndex:
             self._build_np()
 
     def _build_np(self):
+        # gh_build's arithmetic: a float32 product with 1/h, not a division
+        inv = np.float32(1.0) / np.float32(self.h)
         q = np.clip(
-            ((self.points - self.origin) / self.h).astype(np.int64),
+            ((self.points - self.origin) * inv).astype(np.int64),
             0, self.dims.astype(np.int64) - 1,
         )
         c = (q[:, 0] * self.dims[1] + q[:, 1]) * self.dims[2] + q[:, 2]
@@ -147,9 +168,45 @@ class GridIndex:
         between two boxes would fall in NEITHER — so tile interiors must
         come from here, not from query_box.
         """
-        cid = ((int(coords[0]) * int(self.dims[1]) + int(coords[1]))
-               * int(self.dims[2]) + int(coords[2]))
+        cid = self._cell_id(coords)
         return self.order[self.cell_starts[cid]:self.cell_starts[cid + 1]]
+
+    def _cell_id(self, coords) -> int:
+        return ((int(coords[0]) * int(self.dims[1]) + int(coords[1]))
+                * int(self.dims[2]) + int(coords[2]))
+
+    def nested_schedule(self, coords, box_lo, box_hi, depth):
+        """``streaming._nested_candidates``' arrays for the tile of grid
+        cell ``coords``, in one walk of the cells under the outermost box:
+        (interior ids, S_0 ids, counts[L+1] int32, sels[L] int32,
+        skips[L] int32).  Box l is [box_lo[l], box_hi[l]) ((L, 3) float32,
+        box 0 the outermost, each inside the one before); S_l is the
+        points box l holds, in ascending order, and S_L the interior.
+        ``depth``: n zero bytes of the calling thread's own, left zero.
+        Requires the library (``available()``)."""
+        lib = _load()
+        box_lo = np.ascontiguousarray(box_lo, np.float32)
+        box_hi = np.ascontiguousarray(box_hi, np.float32)
+        L = len(box_lo)
+        if (box_lo.shape != (L, 3) or box_hi.shape != (L, 3)
+                or not 0 < L < 255
+                or depth.shape != (len(self.points),)):
+            raise ValueError(
+                f"boxes {box_lo.shape} / {box_hi.shape} must be (L, 3) with "
+                f"0 < L < 255, depth {depth.shape} one byte per point")
+        counts = np.empty(L + 1, np.int32)
+        span = np.empty(2, np.int64)
+        lib.gh_sched_mark(self.points, self.origin, self.h, self.dims,
+                          self.cell_starts, self.order,
+                          self._cell_id(coords), L, box_lo, box_hi, depth,
+                          counts, span)
+        s0 = np.empty(counts[0], np.int32)
+        sels = np.empty(int(counts[1:].sum()), np.int32)
+        skips = np.empty(L * int(counts[L]), np.int32)
+        lib.gh_sched_emit(depth, span, L, counts, s0, sels, skips)
+        return (self.cell_points(coords), s0, counts,
+                np.split(sels, np.cumsum(counts[1:-1])),
+                np.split(skips, L))
 
     def nonempty_cells(self) -> np.ndarray:
         """(k, 3) integer coords of cells containing points."""
@@ -175,3 +232,34 @@ def morton_codes(points: np.ndarray) -> np.ndarray:
     from pointwise_torch.utils.spatial import morton_code
 
     return morton_code(pts)
+
+
+def presort(points: np.ndarray, features: np.ndarray):
+    """The streaming engine's global Morton presort of a scene:
+    (order, points[order], features[order], lo, hi), where ``order`` is
+    ``np.argsort(morton_codes(points), kind="stable")`` (int64), the sorted
+    arrays are C-contiguous float32 and (lo, hi) the points' (min, max)
+    per axis (float32), for ``GridIndex(..., bbox=(lo, hi))``.  One native
+    pass with the library, the NumPy steps without it; the same bits."""
+    pts = np.ascontiguousarray(points, np.float32)
+    fts = np.ascontiguousarray(features, np.float32)
+    if pts.ndim != 2 or pts.shape[1] != 3 or fts.ndim != 2 or (
+            len(fts) != len(pts)):
+        raise ValueError(f"points {pts.shape} must be (n, 3) and features "
+                         f"{fts.shape} (n, c)")
+    if not len(pts):
+        raise ValueError("an empty scene has no bounding box")
+    lib = _load()
+    if not lib:
+        order = np.argsort(morton_codes(pts), kind="stable")
+        return (order, np.ascontiguousarray(pts[order]),
+                np.ascontiguousarray(fts[order]), pts.min(axis=0),
+                pts.max(axis=0))
+    n, c = len(pts), fts.shape[1]
+    lo, hi = np.empty(3, np.float32), np.empty(3, np.float32)
+    order = np.empty(n, np.int64)
+    pts_out = np.empty((n, 3), np.float32)
+    fts_out = np.empty((n, c), np.float32)
+    lib.gh_presort(pts, fts, n, c, min(8, os.cpu_count() or 1), lo, hi,
+                   order, pts_out, fts_out)
+    return order, pts_out, fts_out, lo, hi

@@ -14,13 +14,21 @@
 //               -> cell id per point, CSR starts, permutation
 //   gh_query  : gather indices of all points inside an AABB (via the grid)
 //   gh_morton : 30-bit Morton codes for spatial sorting
+//   gh_presort: a scan's bounding box, Morton codes, stable radix argsort
+//               and gather, in linear time (the streaming engine's presort)
+//   gh_sched_mark / gh_sched_emit : one tile's nested candidate sets and
+//               their gather schedule, in one walk of the tile's cells
 //
-// Build: see build.sh (g++ -O3 -shared -fPIC).
+// Built by native/__init__.py (g++ -O3 -shared -fPIC -pthread).
 
 #include <cstdint>
 #include <cstring>
 #include <cmath>
 #include <algorithm>
+#include <condition_variable>
+#include <mutex>
+#include <thread>
+#include <vector>
 
 extern "C" {
 
@@ -124,6 +132,244 @@ void gh_morton(const float* pts, int64_t n,
       q[a] = (uint32_t)(t * 1023.0f);
     }
     codes[i] = (part1by2(q[0]) << 2) | (part1by2(q[1]) << 1) | part1by2(q[2]);
+  }
+}
+
+}  // extern "C"
+
+namespace {
+
+// Run fn(begin, end, t) over [0, n) cut into nt contiguous slices, slice t
+// on a thread of its own (slice 0 on the caller's).
+template <class F>
+void parallel_slices(int nt, int64_t n, F fn) {
+  std::vector<std::thread> pool;
+  for (int t = 1; t < nt; ++t)
+    pool.emplace_back(fn, n * t / nt, n * (t + 1) / nt, t);
+  fn(0, n / nt, 0);
+  for (auto& th : pool) th.join();
+}
+
+// Holds each of n threads at wait() until all n have reached it.
+class Barrier {
+ public:
+  explicit Barrier(int n) : n_(n) {}
+  void wait() {
+    std::unique_lock<std::mutex> lock(m_);
+    const int64_t gen = gen_;
+    if (++count_ == n_) {
+      count_ = 0;
+      ++gen_;
+      cv_.notify_all();
+      return;
+    }
+    cv_.wait(lock, [&] { return gen_ != gen; });
+  }
+
+ private:
+  std::mutex m_;
+  std::condition_variable cv_;
+  const int n_;
+  int count_ = 0;
+  int64_t gen_ = 0;
+};
+
+constexpr int kDigitBits = 10;          // three digits hold the 30 bits
+constexpr int kBuckets = 1 << kDigitBits;
+
+}  // namespace
+
+extern "C" {
+
+// The streaming engine's presort in one call: the bounding box (lo, hi),
+// gh_morton's codes over it, a stable argsort of the codes and the points
+// and features gathered into that order.  The argsort is an LSD radix sort
+// of the keys code << 32 | index over three 10-bit digits: ties keep their
+// input order, as np.argsort(codes, kind="stable") does.  Each of up to
+// ``threads`` threads takes one contiguous slice through every step, the
+// steps parted by barriers; every step is per element or a stable counting
+// pass, so no bit depends on the thread count.  Requires n >= 1.
+void gh_presort(const float* pts, const float* feats, int64_t n, int64_t c,
+                int threads,
+                float* lo, float* hi,           // out: (3) each
+                int64_t* order,                 // out: (n)
+                float* pts_out,                 // out: (n, 3)
+                float* feats_out) {             // out: (n, c)
+  const int nt = (int)std::max<int64_t>(
+      1, std::min<int64_t>(threads, n / 32768));
+  // the sort's two key arrays, kept by the calling thread from call to
+  // call: fresh pages would cost a fault each, more than the sort itself
+  thread_local std::vector<uint64_t> scratch;
+  if ((int64_t)scratch.size() < 2 * n) scratch.resize(2 * n);
+  uint64_t* const keys = scratch.data();
+  uint64_t* const tmp = keys + n;
+  std::vector<float> ext(6 * nt);
+  std::vector<int64_t> hist((size_t)nt * kBuckets);   // per slice
+  Barrier barrier(nt);
+  parallel_slices(nt, n, [&](int64_t b, int64_t e, int t) {
+    float m[6] = {pts[3 * b], pts[3 * b + 1], pts[3 * b + 2],
+                  pts[3 * b], pts[3 * b + 1], pts[3 * b + 2]};
+    for (int64_t i = b; i < e; ++i)
+      for (int a = 0; a < 3; ++a) {
+        const float v = pts[3 * i + a];
+        m[a] = std::min(m[a], v);
+        m[3 + a] = std::max(m[3 + a], v);
+      }
+    std::copy(m, m + 6, &ext[6 * t]);
+    barrier.wait();
+    float blo[3], bhi[3], span[3];      // every thread reduces alike
+    for (int a = 0; a < 3; ++a) {
+      blo[a] = ext[a];
+      bhi[a] = ext[3 + a];
+      for (int s = 1; s < nt; ++s) {
+        blo[a] = std::min(blo[a], ext[6 * s + a]);
+        bhi[a] = std::max(bhi[a], ext[6 * s + 3 + a]);
+      }
+      span[a] = bhi[a] - blo[a];
+    }
+    if (t == 0) {
+      std::copy(blo, blo + 3, lo);
+      std::copy(bhi, bhi + 3, hi);
+    }
+    uint32_t* codes = reinterpret_cast<uint32_t*>(tmp);
+    gh_morton(pts + 3 * b, e - b, blo, span, codes + b);
+    for (int64_t i = b; i < e; ++i)
+      keys[i] = ((uint64_t)codes[i] << 32) | (uint64_t)i;
+    // one stable scatter per digit: slice t writes each bucket's entries
+    // after those of every earlier slice
+    uint64_t* src = keys;
+    uint64_t* dst = tmp;
+    int64_t* cur = &hist[(size_t)t * kBuckets];
+    for (int d = 0; d < 3; ++d) {
+      const int shift = 32 + kDigitBits * d;
+      std::fill(cur, cur + kBuckets, 0);
+      for (int64_t i = b; i < e; ++i) ++cur[(src[i] >> shift) & (kBuckets - 1)];
+      barrier.wait();
+      if (t == 0) {
+        int64_t run = 0;
+        for (int k = 0; k < kBuckets; ++k)
+          for (int s = 0; s < nt; ++s) {
+            const int64_t m = hist[(size_t)s * kBuckets + k];
+            hist[(size_t)s * kBuckets + k] = run;
+            run += m;
+          }
+      }
+      barrier.wait();
+      for (int64_t i = b; i < e; ++i)
+        dst[cur[(src[i] >> shift) & (kBuckets - 1)]++] = src[i];
+      barrier.wait();
+      std::swap(src, dst);
+    }
+    constexpr int64_t kAhead = 16;      // rows prefetched ahead of the gather
+    for (int64_t i = b; i < e; ++i) {
+      if (i + kAhead < e) {
+        const int64_t f = (int64_t)(src[i + kAhead] & 0xFFFFFFFFu);
+        __builtin_prefetch(pts + 3 * f);
+        __builtin_prefetch(feats + c * f);
+      }
+      const int64_t j = (int64_t)(src[i] & 0xFFFFFFFFu);
+      order[i] = j;
+      pts_out[3 * i] = pts[3 * j];
+      pts_out[3 * i + 1] = pts[3 * j + 1];
+      pts_out[3 * i + 2] = pts[3 * j + 2];
+      std::memcpy(feats_out + c * i, feats + c * j, sizeof(float) * c);
+    }
+  });
+}
+
+// One tile's nested candidate sets, first of two calls.  Box l is
+// [box_lo[l], box_hi[l]) (3 floats each), box 0 the outermost, every box
+// inside the one before it.  Walks the grid cells under box 0 once and
+// sets depth[i] to the number of boxes holding point i (gh_query's own
+// comparisons, so box l holds exactly what gh_query returns for it), then
+// depth L + 1 on the points of grid cell ``cell`` (the tile's interior,
+// inside every box).  S_k, for k = 0..L, is the points of depth > k:
+// writes counts[k] = |S_k| and the first and last marked index to
+// ``span``.  ``depth`` is the caller's buffer of n zero bytes (so
+// L < 255); gh_sched_emit zeroes it again.
+void gh_sched_mark(const float* pts, const float* origin, float h,
+                   const int32_t* dims, const int32_t* cell_starts,
+                   const int32_t* order, int64_t cell, int32_t L,
+                   const float* box_lo, const float* box_hi,
+                   uint8_t* depth,
+                   int32_t* counts,             // out: (L + 1)
+                   int64_t* span) {             // out: (2)
+  const int64_t ny = dims[1], nz = dims[2];
+  const float inv = 1.0f / h;
+  int64_t c0[3], c1[3];
+  for (int a = 0; a < 3; ++a) {
+    const int64_t m = dims[a] - 1;
+    c0[a] = (int64_t)std::floor((box_lo[a] - origin[a]) * inv);
+    c1[a] = (int64_t)std::floor((box_hi[a] - origin[a]) * inv);
+    c0[a] = std::min(std::max(c0[a], (int64_t)0), m);
+    c1[a] = std::min(std::max(c1[a], (int64_t)0), m);
+  }
+  std::vector<int64_t> hist(L + 2, 0);
+  int64_t first = INT64_MAX, last = -1;
+  for (int64_t cx = c0[0]; cx <= c1[0]; ++cx)
+    for (int64_t cy = c0[1]; cy <= c1[1]; ++cy) {
+      const int64_t base = (cx * ny + cy) * nz;
+      for (int32_t k = cell_starts[base + c0[2]];
+           k < cell_starts[base + c1[2] + 1]; ++k) {
+        const int32_t i = order[k];
+        const float x = pts[3 * i], y = pts[3 * i + 1], z = pts[3 * i + 2];
+        int d = 0;
+        while (d < L) {
+          const float* l = box_lo + 3 * d;
+          const float* u = box_hi + 3 * d;
+          if (!(x >= l[0] && x < u[0] && y >= l[1] && y < u[1] &&
+                z >= l[2] && z < u[2]))
+            break;
+          ++d;
+        }
+        if (d) {
+          depth[i] = (uint8_t)d;
+          ++hist[d];
+          first = std::min<int64_t>(first, i);
+          last = std::max<int64_t>(last, i);
+        }
+      }
+    }
+  for (int32_t k = cell_starts[cell]; k < cell_starts[cell + 1]; ++k) {
+    const int32_t i = order[k];
+    --hist[depth[i]];
+    ++hist[L + 1];
+    depth[i] = (uint8_t)(L + 1);
+    first = std::min<int64_t>(first, i);
+    last = std::max<int64_t>(last, i);
+  }
+  int64_t above = 0;                    // points of depth > k
+  for (int k = L; k >= 0; --k) {
+    above += hist[k + 1];
+    counts[k] = (int32_t)above;
+  }
+  span[0] = first;
+  span[1] = last;
+}
+
+// Second call: scans depth[span[0]..span[1]] in ascending index order,
+// zeroing it, and writes S_0 (``s0``, ascending) and the gather schedule
+// of the nested sets, with l = 0..L-1 and S_L the interior:
+//   sels[l]  (at offset counts[1] + .. + counts[l], length counts[l+1]):
+//            the positions within S_l of S_{l+1};
+//   skips[l] (at l * counts[L], length counts[L]): the positions within
+//            S_{l+1} of the interior.
+void gh_sched_emit(uint8_t* depth, const int64_t* span, int32_t L,
+                   const int32_t* counts,
+                   int32_t* s0, int32_t* sels, int32_t* skips) {
+  std::vector<int64_t> off(L + 1, 0), r(L + 1, 0);   // r[k]: |S_k| so far
+  for (int l = 0; l < L; ++l) off[l + 1] = off[l] + counts[l + 1];
+  const int64_t n_in = counts[L];
+  for (int64_t i = span[0]; i <= span[1]; ++i) {
+    const int d = depth[i];
+    if (!d) continue;
+    depth[i] = 0;
+    s0[r[0]] = (int32_t)i;
+    for (int l = 0; l + 1 < d; ++l)
+      sels[off[l] + r[l + 1]] = (int32_t)r[l];
+    if (d == L + 1)
+      for (int l = 0; l < L; ++l) skips[l * n_in + r[L]] = (int32_t)r[l + 1];
+    for (int k = 0; k < d; ++k) ++r[k];
   }
 }
 

@@ -32,10 +32,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from pointwise_torch import resolve_device
+from pointwise_torch import native, resolve_device
 from pointwise_torch.kernels.pointwise_conv_cuda import (HOST_SYNCS,
                                                         SENTINEL, count_sync)
-from pointwise_torch.native import GridIndex, morton_codes
+from pointwise_torch.native import GridIndex
 from pointwise_torch.parallel.mesh import all_gather_cat, all_reduce
 from pointwise_torch.utils.runtime import span
 from pointwise_torch.utils.spatial import morton_code
@@ -300,14 +300,16 @@ def stream_apply_layered(
 
     ``events``: optional dict the engine fills with phase wall-times
     (presort_s, grid_s, build_s, plan_s, pack_s, wait_packer_s, dispatch_s,
-    flush_fetch_s, flush_scatter_s, total_s), n_jobs, resident_bytes (the
-    bytes of the scene this rank holds on its device) and host_syncs (the
-    calls of this one that blocked the host on the device, ``HOST_SYNCS``'s
-    increase).  Each phase of the calling thread is a ``runtime.span``
-    (engine.presort, engine.grid, engine.build, engine.plan,
-    engine.wait_packer, engine.dispatch, engine.fetch, engine.scatter), so
-    a profiler's trace shows it; the packer thread's pack_s is timed only,
-    since a range there would claim the calling thread's idle time.
+    flush_fetch_s, flush_scatter_s, total_s), n_jobs, schedule_native (the
+    tiles whose schedule the native pass built: n_jobs with the native
+    library, 0 on its NumPy fallback), resident_bytes (the bytes of the
+    scene this rank holds on its device) and host_syncs (the calls of this
+    one that blocked the host on the device, ``HOST_SYNCS``'s increase).
+    Each phase of the calling thread is a ``runtime.span`` (engine.presort,
+    engine.grid, engine.build, engine.plan, engine.wait_packer,
+    engine.dispatch, engine.fetch, engine.scatter), so a profiler's trace
+    shows it; the packer thread's pack_s is timed only, since a range there
+    would claim the calling thread's idle time.
 
     ``device``: where the tiles run (default the card); under a mesh, the
     mesh's device.
@@ -341,35 +343,45 @@ def stream_apply_layered(
     syncs0 = sum(HOST_SYNCS.values())
 
     with span("engine.presort", ev_t, "presort_s"):
-        xyz_in = np.asarray(xyz, np.float32)
-        features_in = np.asarray(features, np.float32)
         # GLOBAL morton pre-sort, once: every per-tile candidate set is then
         # a sorted-index array already in morton order.  Outputs are written
         # back through ``order``.
-        order = np.argsort(morton_codes(xyz_in), kind="stable")
-        xyz = np.ascontiguousarray(xyz_in[order])
-        features = np.ascontiguousarray(features_in[order])
+        order, xyz, features, lo_all, hi_all = native.presort(xyz, features)
         radii = [float(r) for r in radii]
         # halos[l] = receptive field remaining BEFORE layer l
         halos = [sum(radii[l:]) for l in range(len(radii))]
         L = len(radii)
     with span("engine.grid", ev_t, "grid_s"):
-        grid = GridIndex(xyz, tile_size)
+        grid = GridIndex(xyz, tile_size, bbox=(lo_all, hi_all))
+
+    # one native walk per tile with the library (GridIndex.nested_schedule,
+    # each build thread with depth bytes of its own), else the NumPy
+    # reference; the same arrays either way
+    schedule_native = native.available()
+    per_thread = threading.local()
 
     def build_job(c):
         lo = grid.origin + c.astype(np.float32) * tile_size
         hi = lo + tile_size
-        job = _nested_candidates(grid, c, lo, hi, halos)
+        if schedule_native:
+            if not hasattr(per_thread, "depth"):
+                per_thread.depth = np.zeros(len(xyz), np.uint8)
+            job = grid.nested_schedule(
+                c, [lo - h for h in halos], [hi + h + 1e-5 for h in halos],
+                per_thread.depth)
+        else:
+            job = _nested_candidates(grid, c, lo, hi, halos)
         if job is None:
             return None
         return (lo + 0.5 * tile_size, *job)
 
-    # schedule building is pure host work (native box queries + sorts, all
-    # GIL-releasing) — build every tile's schedule in parallel
+    # schedule building is pure host work (native passes, or box queries +
+    # sorts, all GIL-releasing) — build every tile's schedule in parallel
     with span("engine.build", ev_t, "build_s"), \
             concurrent.futures.ThreadPoolExecutor(max_workers=8) as ex:
         jobs = [j for j in ex.map(build_job, grid.nonempty_cells())
                 if j is not None]
+    ev_t["schedule_native"] = len(jobs) if schedule_native else 0
 
     # grouping, coalescing, the length profiles, the resident scene and
     # the output
