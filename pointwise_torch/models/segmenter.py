@@ -17,6 +17,7 @@ from torch import nn
 
 from pointwise_torch.models.layers import (context_group, dense, masked_pool,
                                            trunk)
+from pointwise_torch.utils.runtime import span
 
 
 class PointwiseSegmenter(nn.Module):
@@ -146,7 +147,11 @@ class ShapeNetPartSegmenter(nn.Module):
     Submodules: ``blocks``, ``embed`` (the JAX tree's ``Dense_0``: flax
     names the category embedding first), ``head`` (``Dense_1`` ..) and
     ``out`` (the last ``Dense_*``); convert.py maps them.  ``context_axes``,
-    ``mesh`` and ``remat`` as in ``PointwiseSegmenter``."""
+    ``mesh`` and ``remat`` as in ``PointwiseSegmenter``.
+
+    The forward's spans (``runtime.span``, ranges only under a profiler):
+    ``partseg.context`` (the pool, the embedding and their broadcast beside
+    the skips) and ``partseg.head`` (the head and ``out``)."""
 
     def __init__(self, num_parts: int = 50, num_categories: int = 16,
                  in_features: int = 3, *,
@@ -181,16 +186,19 @@ class ShapeNetPartSegmenter(nn.Module):
             x = blk(points, x, mask)
             skips.append(x)
         h = torch.cat(skips, dim=-1)
-        onehot = nn.functional.one_hot(category.long(),
-                                       self.num_categories).to(h.dtype)
-        g = torch.cat([masked_pool(x, mask, self.context),
-                       self.embed(onehot)], dim=-1)
-        h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)], dim=-1)
-        for lin in self.head:
-            h = self.drop(torch.relu(lin(h)))
-        logits = self.out(h)
-        if mask is not None:
-            logits = logits * mask.to(logits.dtype)[..., None]
+        with span("partseg.context"):
+            onehot = nn.functional.one_hot(category.long(),
+                                           self.num_categories).to(h.dtype)
+            g = torch.cat([masked_pool(x, mask, self.context),
+                           self.embed(onehot)], dim=-1)
+            h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)],
+                          dim=-1)
+        with span("partseg.head"):
+            for lin in self.head:
+                h = self.drop(torch.relu(lin(h)))
+            logits = self.out(h)
+            if mask is not None:
+                logits = logits * mask.to(logits.dtype)[..., None]
         return logits
 
 
