@@ -30,8 +30,9 @@
 //
 // What bounds it on an H100.  The walk takes ~97% of the forward: latency,
 // at 2 CTAs per SM (their accumulators fill the register file), through
-// the codes (one pair_code per listed entry and CTA), the per-cell tests
-// and two barriers per iteration (the walk header's note).  The product:
+// the codes (one pair_code per candidate of the k-steps the CTA's cull
+// keeps), the per-cell tests, two barriers per iteration and the means'
+// stores (the walk header's note).  The product:
 // the xbar workspace (27*Cin bf16 per center) read once from device memory
 // and 2*27*Cin*Cout flops per center at the tensor cores' rate.  Sharing
 // the codes across a center tile's CTAs (a cluster) and fusing the product

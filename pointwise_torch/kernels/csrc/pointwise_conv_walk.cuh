@@ -17,13 +17,14 @@
 // plane times the features on the matrix unit, never a scatter.
 //
 // Design.  A CTA owns WALK_M = 16 centers (one m16 MMA row tile) and walks
-// their row tile's candidate tiles (every tile, or the CSR list) in
-// ascending order, two list entries (128 candidates) per iteration in bf16
-// and one in f32.  Per iteration it
+// the k-steps (WALK_K = 16 candidates, aligned) of its row tile's candidate
+// tiles (every tile, or the CSR list) that its cull keeps (below), in
+// ascending order, 8 k-steps (128 candidates) per iteration in bf16 and 4
+// in f32.  Per iteration it
 //   * computes the 16 x 128 cell codes (pair_code, unchanged) into shared
 //     bytes, laid out so that each lane reads the 8 codes of its mma.sync
 //     A fragment with one 8-byte load (0xFF: no cell), and marks the
-//     16-candidate k-steps that hold a pair of one of the CTA's cells;
+//     k-steps that hold a pair of one of the CTA's cells;
 //   * stages, with cp.async, the feature rows of those live k-steps only;
 //     the codes run one iteration ahead, so the features land while the
 //     iteration before is summed, and the coordinates two ahead;
@@ -42,9 +43,33 @@
 // CTA c holding the cells of x-third c of the ball, so it stages about a
 // third of the k-steps; at Cin = 3 or 6: NT = 1, 16 cells per warp, one CTA
 // of 2 warps); wider features take `ng` channel groups of NT*8 - 1
-// channels.  Each CTA computes its own codes: one pair_code per listed
-// entry per CTA.
+// channels.  Each CTA computes its own codes: one pair_code per kept
+// candidate per CTA.
 //
+// The cull.  Before any code, a CTA drops every k-step of its list whose
+// candidates' box lies farther than r from the box of its own 16 rows, and
+// walks the rest (box_within).  The boxes of the candidates' k-steps come
+// from the pack kernel, which every walk call runs before the walk (no
+// launch and no host sync added; float4 [B][Mp/16][lo, hi] after the
+// packed features); the rows' box from the walk's own rows.  Padding (a
+// coordinate at |x| >= SENTINEL_CUT, the op layer's sentinel points at
+// +-1e6) is left out of both, as the CSR lists' boxes leave it out: it has
+// no in-ball pair.  The cull is conservative under pair_code's rounding:
+// the boxes' gap per axis, max(lo - hi', lo' - hi, 0), is rounded to f32
+// as rel is, and its squares summed as d2 is, so with rounding monotone it
+// is at most |rel| and d2 of every pair of the two boxes; a dropped k-step
+// has no pair with d2 <= r2, so every code in it would be NO_CELL, its
+// live bit clear and no MMA run.  The kept k-steps feed the same MMAs in
+// the same order as without the cull: every output keeps its bits.  A CTA
+// tests its list's k-steps one a thread (fill), appends the kept ones to
+// a ring of WALK_RING group indices in order (ballots and the warps'
+// counts), two iterations ahead of the sums; the codes, the coordinate
+// and feature staging, the barriers and the TMA or cp.async issues all
+// scale with the k-steps kept.  Where nothing is dropped (the classifier's
+// radius 2.0) it costs one box test per (CTA, k-step) against 256 pair
+// codes, and per CTA one more round trip to memory before the first codes
+// (the boxes and rows ahead of the coordinates).
+
 // Counts.  The last staged column of each channel group is 1.0, so its MMA
 // column sums the plane: the count of each (center, cell), an integer sum
 // of 1 x 1 products, exact in the f32 accumulator (below 2^24) and so
@@ -74,19 +99,23 @@
 // products are exact in f32.
 //
 // Order and bits.  Every (center, cell, channel) sum has one owner thread
-// and runs in the walk's tile order, so results repeat bit for bit; a tile
-// the CSR list drops holds no in-ball pair, so the dense walk skips every
-// cell of it and both walks give identical bits.
+// and runs in the walk's k-step order, so results repeat bit for bit; a
+// tile the CSR list drops, like a k-step the cull drops, holds no in-ball
+// pair, so the dense walk would skip every cell of it and both walks give
+// identical bits.
 //
 // What bounds it on an H100: latency and instruction issue, not bytes or
 // MMAs.  The accumulators of 16 centers (27 x 128 f32 each) fill most of an
 // SM's registers, so an SM runs 2 CTAs (18 warps), and each iteration's
 // chains run in turn between two barriers.  The split of its warps' cycles
-// (pointwise_torch/tools/walk_split.py, PERF.md; an H100 SXM at 700 W) at
-// layer 2 of a 1M-point request (Cin 124): the codes 50% (one pair_code per listed pair in each
-// of the 3 CTAs of a center tile), the cp.async staging 33%, the cell tests
-// 6%, the waits on the barriers 3%, the MMAs 2%; at Cin 6 the codes 35% and
-// the tests 47%.
+// (pointwise_torch/tools/walk_split.py, PERF.md; an H100 SXM at 700 W)
+// before the cull, at layer 2 of a 1M-point request (Cin 124): the codes
+// 50% (one pair_code per listed pair in each of the 3 CTAs of a center
+// tile), the cp.async staging 33%, the cell tests 6%, the waits on the
+// barriers 3%, the MMAs 2%; at Cin 6 the codes 35% and the tests 47%.
+// With the cull, on 2,048-point shapes at r 0.15 / 0.6 (18% / 54% of the
+// k-steps kept): the epilogue's means and stores 55% / 28%, the codes 21% /
+// 40%, the cull 6% / 4%.
 //
 // The forward's bf16 walk at NT = 16 (Cin > 56; walk_tma) stages its
 // features by TMA instead of cp.async: the packed features are a 2-D
@@ -104,8 +133,10 @@
 // through a cluster (each computes a third and stores it into all three
 // over DSMEM; the cluster barrier costs more than the codes it saves), and
 // an axis cell from three compares in place of floor and min (more
-// instructions than the conversion pipe's two).  dW's and dX's walks keep
-// the cp.async staging.
+// instructions than the conversion pipe's two), and the cp.async staging
+// loop unrolled by 4 (registers spilled; dW's walk 4% slower where the cull
+// keeps everything).  dW's and dX's walks keep the cp.async staging, one
+// k-step's copies at a time.
 
 #pragma once
 
@@ -117,9 +148,16 @@
 namespace pw {
 
 constexpr int WALK_M = 16;          // centers per walk CTA
+constexpr int WALK_K = 16;          // candidates per k-step: the unit the CTAs cull
 constexpr int WALK_MAX_WARPS = 9;   // warps per walk CTA, at most
+constexpr int WALK_RING = 512;      // kept k-steps a CTA holds at once (> 2 * 8 + 9 * 32)
 constexpr int MAX_WIDTH = 1024;     // widest Cin (and forward Cout) accepted
 constexpr unsigned NO_CELL = 0xFFu;
+// A coordinate at |x| >= SENTINEL_CUT is padding (pointwise_conv_cuda.py's
+// _SENTINEL_CUT): the cull's boxes leave such points out, and a box of
+// padding alone is empty (lo BOX_EMPTY > hi -BOX_EMPTY).
+constexpr float SENTINEL_CUT = 5.0e5f;
+constexpr float BOX_EMPTY = 1.0e9f;
 
 // The walk's time split, built only into the instrumented copy of
 // pointwise_torch/tools/walk_split.py (csrc/pointwise_conv_walk_split.cu
@@ -127,9 +165,11 @@ constexpr unsigned NO_CELL = 0xFFu;
 // its loop (WalkPart) into pw_split_cycles, summed over every warp; the
 // main build compiles none of it.
 enum WalkPart { PART_CODES, PART_STAGE, PART_WAIT, PART_TESTS, PART_MMA, PART_EPILOGUE,
-                PART_COUNT };
+                PART_CULL, PART_COUNT };
 #ifdef PW_WALK_SPLIT
 __device__ unsigned long long pw_split_cycles[PART_COUNT];
+// the k-steps the CTAs kept and the k-steps their lists held, summed over CTAs
+__device__ unsigned long long pw_split_ksteps[2];
 #define PW_SPLIT_BEGIN                  \
   unsigned split_t = (unsigned)clock(); \
   unsigned split_acc[PART_COUNT] = {};
@@ -143,10 +183,16 @@ __device__ unsigned long long pw_split_cycles[PART_COUNT];
   if ((threadIdx.x & 31) == 0)                                                \
     for (int split_p = 0; split_p < PART_COUNT; ++split_p)                    \
       atomicAdd(&pw_split_cycles[split_p], (unsigned long long)split_acc[split_p]);
+#define PW_SPLIT_KSTEPS(kept, listed)                                  \
+  if (threadIdx.x == 0) {                                              \
+    atomicAdd(&pw_split_ksteps[0], (unsigned long long)(kept));        \
+    atomicAdd(&pw_split_ksteps[1], (unsigned long long)(listed));      \
+  }
 #else
 #define PW_SPLIT_BEGIN
 #define PW_SPLIT(part)
 #define PW_SPLIT_END
+#define PW_SPLIT_KSTEPS(kept, listed)
 #endif
 
 // Tags of the walk's three callers: the kernels' names (and so the traces)
@@ -234,9 +280,18 @@ inline WalkShape walk_shape(int cin) {
 
 // bf16 elements of the packed features: [terms][B][ng][Mp][nt*8].
 template <typename T>
-size_t walk_pack_elems(int cin, int B, int Mp) {
+size_t walk_feat_elems(int cin, int B, int Mp) {
   const WalkShape s = walk_shape(cin);
   return (size_t)Terms<T>::value * B * s.ng * Mp * s.nt * 8;
+}
+
+// bf16 elements of the pack kernel's scratch: the packed features, then
+// the boxes of the candidates' k-steps, float4 [B][Mp / WALK_K][lo, hi]
+// (16-byte aligned: the features end on a multiple of 8 bf16).
+template <typename T>
+size_t walk_pack_elems(int cin, int B, int Mp) {
+  return walk_feat_elems<T>(cin, B, Mp)
+         + (size_t)B * (Mp / WALK_K) * 2 * sizeof(float4) / sizeof(__nv_bfloat16);
 }
 
 // bf16 elements of dX's scales: [terms][B][27][n].
@@ -266,19 +321,60 @@ size_t walk_smem_bytes(int cin) {
          + sizeof(float) * 2 * rows * 3                             // coordinates
          + 2 * (rows / 16) * 32 * sizeof(uint2)                     // codes
          + sizeof(float) * WALK_M * 3                               // centers
+         + sizeof(int) * (WALK_RING + WALK_MAX_WARPS)               // kept k-steps
          + 2 * 32;                                                  // live k-steps
 }
 
 // ---- kernels ---------------------------------------------------------------
 
+// Whether a k-step whose candidates lie in the box (glo, ghi) may hold a
+// pair within r of a row in (rlo, rhi): the squared gap of the two boxes,
+// per axis max(glo - rhi, rlo - ghi, 0) rounded to f32, squared and summed
+// in x, y, z order as pair_code sums d2, is at most r2.  Rounding is
+// monotone, so that gap is at most |rel| on every axis of every pair of
+// the two boxes, and its d2 at most the pair's: a k-step it drops holds no
+// in-ball pair.  An empty box (BOX_EMPTY) is dropped.
+__device__ __forceinline__ bool box_within(float4 rlo, float4 rhi, float4 glo, float4 ghi,
+                                           float r2) {
+  const float gx = fmaxf(fmaxf(__fsub_rn(glo.x, rhi.x), __fsub_rn(rlo.x, ghi.x)), 0.f);
+  const float gy = fmaxf(fmaxf(__fsub_rn(glo.y, rhi.y), __fsub_rn(rlo.y, ghi.y)), 0.f);
+  const float gz = fmaxf(fmaxf(__fsub_rn(glo.z, rhi.z), __fsub_rn(rlo.z, ghi.z)), 0.f);
+  float d2 = __fmul_rn(gx, gx);
+  d2 = __fadd_rn(d2, __fmul_rn(gy, gy));
+  d2 = __fadd_rn(d2, __fmul_rn(gz, gz));
+  return d2 <= r2;
+}
+
+__device__ __forceinline__ bool real_point(float x, float y, float z) {
+  return fabsf(x) < SENTINEL_CUT && fabsf(y) < SENTINEL_CUT && fabsf(z) < SENTINEL_CUT;
+}
+
 // feats (B, Mp, cin) -> packed [terms][B][ng][Mp][nt*8] bf16: group g holds
 // channels g*(nt*8-1) .. +nt*8-2 (zeros past cin) and 1.0 in its last
 // column (in the first term only); f32 features split into hi, mid, lo.
-// dX packs its f32 g (Tin = float) to the terms of T the same way.
+// dX packs its f32 g (Tin = float) to the terms of T the same way.  Also
+// the box of each k-step of the candidates pts (B, Mp, 3), padding left
+// out, into boxes [B][Mp / WALK_K][lo, hi]: the walk's cull.
 template <typename Tag, typename T, typename Tin>
-__global__ void pw_walk_pack_kernel(const Tin* __restrict__ feats,
-                                    __nv_bfloat16* __restrict__ packed, int B, int Mp,
-                                    int cin, int nt, int ng) {
+__global__ void pw_walk_pack_kernel(const Tin* __restrict__ feats, const float* __restrict__ pts,
+                                    __nv_bfloat16* __restrict__ packed,
+                                    float4* __restrict__ boxes, int B, int Mp, int cin, int nt,
+                                    int ng) {
+  const size_t n_boxes = (size_t)B * (Mp / WALK_K);
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_boxes;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const float* p = pts + i * WALK_K * 3;
+    float4 lo = make_float4(BOX_EMPTY, BOX_EMPTY, BOX_EMPTY, 0.f);
+    float4 hi = make_float4(-BOX_EMPTY, -BOX_EMPTY, -BOX_EMPTY, 0.f);
+    for (int j = 0; j < WALK_K; ++j) {
+      const float x = p[j * 3 + 0], y = p[j * 3 + 1], z = p[j * 3 + 2];
+      if (!real_point(x, y, z)) continue;
+      lo.x = fminf(lo.x, x), lo.y = fminf(lo.y, y), lo.z = fminf(lo.z, z);
+      hi.x = fmaxf(hi.x, x), hi.y = fmaxf(hi.y, y), hi.z = fmaxf(hi.z, z);
+    }
+    boxes[2 * i] = lo;
+    boxes[2 * i + 1] = hi;
+  }
   const int w = nt * 8, per = w - 1;
   const size_t n = (size_t)B * ng * Mp * w;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -342,6 +438,7 @@ __global__ void __launch_bounds__(WALK_MAX_WARPS * 32, 2)
 pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
                const float* __restrict__ pts,            // (B, Mp, 3)
                const __nv_bfloat16* __restrict__ packed, // pw_walk_pack_kernel
+               const float4* __restrict__ boxes,         // pw_walk_pack_kernel: pts' k-steps
                const __nv_bfloat16* __restrict__ scl,    // pw_walk_scale_kernel (dX) or null
                const int* __restrict__ tile_ptr,         // (B * Ncp/TILE + 1) or null
                const int* __restrict__ tile_idx,         // (tile_ptr[-1],) or null
@@ -356,8 +453,8 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   constexpr int TERMS = Terms<T>::value;
   constexpr int STERMS = DX ? TERMS : 0;   // scale terms (dX)
   constexpr int ROWS = WalkRows<T>::value;   // candidates per iteration
-  constexpr int SUB = ROWS / TILE;      // list entries per iteration
-  constexpr int KS = ROWS / 16;         // k-steps per iteration
+  constexpr int KS = ROWS / WALK_K;     // k-steps per iteration
+  constexpr int PER_TILE = TILE / WALK_K;   // k-steps per list entry
   constexpr int W8 = NT * 8;            // staged columns
   constexpr int SP = W8 + 8;            // padded shared row: ldmatrix rows on distinct banks
   constexpr unsigned ONE2 = 0x3F803F80u;   // two bf16 1.0
@@ -375,7 +472,9 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   float* cxyz = reinterpret_cast<float*>(ss + 2 * STERMS * N_CELLS * ROWS);   // [2][ROWS*3]
   uint2* codes = reinterpret_cast<uint2*>(cxyz + 2 * ROWS * 3);         // [2][KS][32]
   float* pc = reinterpret_cast<float*>(codes + 2 * KS * 32);           // [WALK_M*3]
-  unsigned char* live_w = reinterpret_cast<unsigned char*>(pc + WALK_M * 3);   // [2][32]
+  int* kept = reinterpret_cast<int*>(pc + WALK_M * 3);                  // [WALK_RING]
+  int* wcount = kept + WALK_RING;                                        // [WALK_MAX_WARPS]
+  unsigned char* live_w = reinterpret_cast<unsigned char*>(wcount + WALK_MAX_WARPS);   // [2][32]
 
   const int nthreads = blockDim.x;
   const int nwarps = nthreads >> 5;
@@ -402,15 +501,15 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     list = tile_idx + beg;
     n_walk = tile_ptr[b * n_rows + row + 1] - beg;
   }
-  const int n_it = (n_walk + SUB - 1) / SUB;
+  const int n_listed = n_walk * PER_TILE;   // the list's k-steps
   const float* pb = pts + (size_t)b * Mp * 3;
+  const float4* bxb = boxes + (size_t)b * (Mp / WALK_K) * 2;
   const size_t term_stride = (size_t)B * ng_total * Mp * W8;
   const __nv_bfloat16* fb = packed + ((size_t)b * ng_total + ng) * Mp * W8;
   const float r2 = __fmul_rn(radius, radius);
 
   PW_SPLIT_BEGIN
-  for (int i = threadIdx.x; i < WALK_M * 3; i += nthreads)
-    pc[i] = ctr[((size_t)b * Ncp + c0) * 3 + i];
+  const float* crow = ctr + ((size_t)b * Ncp + c0) * 3;   // the CTA's rows
   const CUtensorMap* fmap = &tma_f;
   if constexpr (TMA) {
     if (threadIdx.x == 0) {
@@ -421,15 +520,64 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     }
   }
 
-  // Iteration u walks list entries u*SUB .. u*SUB + SUB-1 (those < n_walk).
-  auto tile_of = [&](int t) { return list != nullptr ? list[t] : t; };
+  // The cull.  The CTA keeps, of its list's k-steps (WALK_K candidates
+  // each, in list order), those whose box box_within finds near the box of
+  // its own real rows, and walks only them: the v-th kept k-step is group
+  // kept[v % WALK_RING] (candidates group*WALK_K ...), iteration u walks
+  // kept k-steps u*KS .. u*KS + KS-1 (those < tail).  fill(need) tests
+  // nthreads listed k-steps a round, one a thread, and appends the kept
+  // ones in order (ballots and the warps' counts), until tail >= need or
+  // the list is done.  tail and scanned are the same in every thread.
+  int tail = 0, scanned = 0;
+  auto fill = [&](int need) {
+    if (tail >= need || scanned >= n_listed) return;
+    // the rows' box (each half-warp reduces the 16 rows, padding left out)
+    const int m = lane & 15;
+    const float x = crow[m * 3 + 0], y = crow[m * 3 + 1], z = crow[m * 3 + 2];
+    float4 rlo = make_float4(BOX_EMPTY, BOX_EMPTY, BOX_EMPTY, 0.f);
+    float4 rhi = make_float4(-BOX_EMPTY, -BOX_EMPTY, -BOX_EMPTY, 0.f);
+    if (real_point(x, y, z)) rlo = rhi = make_float4(x, y, z, 0.f);
+#pragma unroll
+    for (int o = 8; o > 0; o >>= 1) {
+      rlo.x = fminf(rlo.x, __shfl_xor_sync(0xffffffffu, rlo.x, o));
+      rlo.y = fminf(rlo.y, __shfl_xor_sync(0xffffffffu, rlo.y, o));
+      rlo.z = fminf(rlo.z, __shfl_xor_sync(0xffffffffu, rlo.z, o));
+      rhi.x = fmaxf(rhi.x, __shfl_xor_sync(0xffffffffu, rhi.x, o));
+      rhi.y = fmaxf(rhi.y, __shfl_xor_sync(0xffffffffu, rhi.y, o));
+      rhi.z = fmaxf(rhi.z, __shfl_xor_sync(0xffffffffu, rhi.z, o));
+    }
+    do {
+      const int i = scanned + threadIdx.x;
+      int grp = 0;
+      bool keep = false;
+      if (i < n_listed) {
+        grp = (list != nullptr ? list[i / PER_TILE] : i / PER_TILE) * PER_TILE + i % PER_TILE;
+        keep = box_within(rlo, rhi, bxb[2 * grp], bxb[2 * grp + 1], r2);
+      }
+      const unsigned ballot = __ballot_sync(0xffffffffu, keep);
+      if (lane == 0) wcount[warp] = __popc(ballot);
+      __syncthreads();
+      int before = 0, total = 0;
+      for (int w = 0; w < nwarps; ++w) {
+        const int c = wcount[w];
+        before += w < warp ? c : 0;
+        total += c;
+      }
+      if (keep)
+        kept[(tail + before + __popc(ballot & ((1u << lane) - 1u))) & (WALK_RING - 1)] = grp;
+      tail += total;
+      scanned += nthreads;
+      __syncthreads();   // the kept k-steps written, the counts read
+    } while (tail < need && scanned < n_listed);
+  };
+  auto group_of = [&](int v) { return kept[v & (WALK_RING - 1)]; };
   // Iteration u's coordinates into cxyz[buf] (cp.async, not committed).
   auto stage_xyz = [&](int u, int buf) {
-    for (int c = threadIdx.x; c < SUB * TILE * 3 / 4; c += nthreads) {
-      const int i = c / (TILE * 3 / 4), cc = c - i * (TILE * 3 / 4);
-      if (u * SUB + i < n_walk)
+    for (int c = threadIdx.x; c < KS * WALK_K * 3 / 4; c += nthreads) {
+      const int s = c / (WALK_K * 3 / 4), cc = c - s * (WALK_K * 3 / 4);
+      if (u * KS + s < tail)
         cp_async16(cxyz + buf * ROWS * 3 + c * 4,
-                   pb + (size_t)tile_of(u * SUB + i) * TILE * 3 + cc * 4, 16);
+                   pb + (size_t)group_of(u * KS + s) * WALK_K * 3 + cc * 4, 16);
     }
   };
   // Iteration u's feature rows into fs[buf], only those of the live k-steps
@@ -437,16 +585,26 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   // for dX also the scales of those k-steps' columns for the CTA's cells,
   // into ss[buf][term][cell - cell_lo].
   auto stage_feats = [&](int u, int buf, unsigned live) {
-    for (int c = threadIdx.x; c < TERMS * ROWS * NT; c += nthreads) {
-      const int term = c / (ROWS * NT);
-      const int rr = c - term * ROWS * NT;
-      const int j = rr / NT, q = rr - j * NT;
-      if ((live >> (j >> 4)) & 1u)
-        cp_async16(fs + ((buf * TERMS + term) * ROWS + j) * SP + q * 8,
-                   fb + term * term_stride
-                       + ((size_t)tile_of(u * SUB + j / TILE) * TILE + j % TILE) * W8
-                       + q * 8,
-                   16);
+    // the iteration's KS groups, contiguous in the ring: one or two
+    // 16-byte loads, taken apart at compile time per k-step
+    const int4* kv = reinterpret_cast<const int4*>(kept + ((u * KS) & (WALK_RING - 1)));
+    const int4 g0 = kv[0], g1 = KS > 4 ? kv[1] : g0;
+    auto pick = [&](int s) {
+      const int4 g = s < 4 ? g0 : g1;
+      return (s & 2) ? ((s & 1) ? g.w : g.z) : ((s & 1) ? g.y : g.x);
+    };
+    constexpr int PER_K = TERMS * WALK_K * NT;   // 16-byte copies of one k-step
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      if (!((live >> s) & 1u)) continue;
+      const __nv_bfloat16* src = fb + (size_t)pick(s) * WALK_K * W8;
+      for (int w = threadIdx.x; w < PER_K; w += nthreads) {
+        const int term = w / (WALK_K * NT);
+        const int rr = w - term * (WALK_K * NT);
+        const int jr = rr / NT, q = rr - jr * NT;
+        cp_async16(fs + ((buf * TERMS + term) * ROWS + s * WALK_K + jr) * SP + q * 8,
+                   src + term * term_stride + jr * W8 + q * 8, 16);
+      }
     }
     if constexpr (DX) {
       const int ncl = cell_hi - cell_lo;
@@ -455,13 +613,11 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
         const int s = (c >> 1) % KS;
         const int r = (c >> 1) / KS;
         const int kl = r % ncl, term = r / ncl;
-        if ((live >> s) & 1u) {
-          const int j = s * 16;
-          cp_async16(ss + ((buf * STERMS + term) * N_CELLS + kl) * ROWS + j + half * 8,
+        if ((live >> s) & 1u)
+          cp_async16(ss + ((buf * STERMS + term) * N_CELLS + kl) * ROWS + s * WALK_K + half * 8,
                      scl + (((size_t)term * B + b) * N_CELLS + cell_lo + kl) * Mp
-                         + (size_t)tile_of(u * SUB + j / TILE) * TILE + j % TILE + half * 8,
+                         + (size_t)pick(s) * WALK_K + half * 8,
                      16);
-        }
       }
     }
   };
@@ -476,15 +632,10 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     mbar_expect_tx(bar, __popc(live) * WALK_TMA_KSTEP_BYTES);
     const unsigned dst = smem_u32(fs) + buf * KS * WALK_TMA_KSTEP_BYTES;
     const int row0 = (b * ng_total + ng) * Mp;
-    int first[SUB];   // the rows of the iteration's list entries
-#pragma unroll
-    for (int e = 0; e < SUB; ++e)
-      first[e] = (live >> (e * (TILE / 16))) & ((1u << (TILE / 16)) - 1u)
-                     ? row0 + tile_of(u * SUB + e) * TILE : 0;
 #pragma unroll
     for (int s = 0; s < KS; ++s) {
       if (!((live >> s) & 1u)) continue;
-      const int row = first[s / (TILE / 16)] + (s % (TILE / 16)) * 16;
+      const int row = row0 + group_of(u * KS + s) * WALK_K;
       tma_load_2d(dst + s * WALK_TMA_KSTEP_BYTES, fmap, bar, 0, row);
       tma_load_2d(dst + s * WALK_TMA_KSTEP_BYTES + WALK_TMA_KSTEP_BYTES / 2, fmap, bar,
                   TMA_BOX_K, row);
@@ -499,7 +650,7 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
   auto make_codes = [&](int u, int buf) {
     const float* cx = cxyz + buf * ROWS * 3;
     unsigned char* cb = reinterpret_cast<unsigned char*>(codes + buf * KS * 32);
-    const int n_real = min(n_walk - u * SUB, SUB) * TILE;
+    const int n_real = min(tail - u * KS, KS) * WALK_K;
     const int m = threadIdx.x & 15;
     const float px = pc[m * 3 + 0], py = pc[m * 3 + 1], pz = pc[m * 3 + 2];
     unsigned char* cm = cb + (m & 7) * 32 + (m >> 3) * 2;
@@ -578,9 +729,13 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
 
   // The codes run one iteration ahead of the sums, so that each
   // iteration's features are fetched for its live k-steps only and land
-  // while the iteration before is summed.
+  // while the iteration before is summed; the cull two ahead, before the
+  // coordinates.
   unsigned live_cur = 0;
-  if (n_it > 0) {
+  fill(2 * KS);
+  PW_SPLIT(PART_CULL)
+  if (tail > 0) {
+    if (threadIdx.x < WALK_M * 3 / 4) cp_async16(pc + threadIdx.x * 4, crow + threadIdx.x * 4, 16);
     stage_xyz(0, 0);
     cp_async_commit();
     cp_async_wait_all();
@@ -596,28 +751,31 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     } else {
       stage_feats(0, 0, live_cur);
     }
-    if (n_it > 1) stage_xyz(1, 1);
+    if (tail > KS) stage_xyz(1, 1);
     cp_async_commit();
     PW_SPLIT(PART_STAGE)
   }
-  for (int u = 0; u < n_it; ++u) {
+  for (int u = 0; u * KS < tail; ++u) {
     const int buf = u & 1;
+    const bool next = (u + 1) * KS < tail;   // fill((u + 2) * KS) ran
     cp_async_wait_all();
     __syncthreads();   // u's features and u+1's coordinates landed; u-1 summed
     PW_SPLIT(PART_WAIT)
-    if (u + 1 < n_it) make_codes(u + 1, buf ^ 1);
+    if (next) make_codes(u + 1, buf ^ 1);
     PW_SPLIT(PART_CODES)
+    fill((u + 3) * KS);
+    PW_SPLIT(PART_CULL)
     __syncthreads();   // u+1's codes and live k-steps written
     PW_SPLIT(PART_WAIT)
     unsigned live_next = 0;
-    if (u + 1 < n_it) {
+    if (next) {
       live_next = live_of(buf ^ 1);
       if constexpr (TMA) {
         if (threadIdx.x == 0) issue_feats(u + 1, buf ^ 1, live_next);
       } else {
         stage_feats(u + 1, buf ^ 1, live_next);
       }
-      if (u + 2 < n_it) stage_xyz(u + 2, buf);
+      if ((u + 2) * KS < tail) stage_xyz(u + 2, buf);
     }
     cp_async_commit();
     PW_SPLIT(PART_STAGE)
@@ -673,6 +831,7 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
     }
     live_cur = live_next;
   }
+  PW_SPLIT_KSTEPS(tail, n_listed)
   if (!active) {
     PW_SPLIT_END
     return;
@@ -721,7 +880,8 @@ pw_walk_kernel(const float* __restrict__ ctr,            // (B, Ncp, 3)
 
 template <typename Tag, typename T, int NT>
 int launch_walk_nt(const WalkShape& s, const float* ctr, const float* pts,
-                   const __nv_bfloat16* packed, const __nv_bfloat16* scl, const int* tile_ptr,
+                   const __nv_bfloat16* packed, const float4* boxes, const __nv_bfloat16* scl,
+                   const int* tile_ptr,
                    const int* tile_idx, const float* cnt_in, float* cnt_out, T* xbar, int ldx,
                    int B, int Ncp, int Mp, int cin, float radius, float inv,
                    cudaStream_t stream) {
@@ -737,8 +897,8 @@ int launch_walk_nt(const WalkShape& s, const float* ctr, const float* pts,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((Ncp / WALK_M) * s.ng * s.ctas, B);
   pw_walk_kernel<Tag, T, NT><<<grid, s.warps * 32, smem, stream>>>(
-      ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin,
-      s.ng, s.ctas, radius, inv, tf);
+      ctr, pts, packed, boxes, scl, tile_ptr, tile_idx, cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp,
+      cin, s.ng, s.ctas, radius, inv, tf);
   return (int)cudaGetLastError();
 }
 
@@ -761,8 +921,9 @@ int launch_walk(const float* ctr, const float* pts, const void* feats,
   if (cin < 1 || cin > MAX_WIDTH) return (int)cudaErrorInvalidValue;
   const WalkShape s = walk_shape(cin);
   const size_t n = (size_t)B * s.ng * Mp * s.nt * 8;
+  float4* boxes = reinterpret_cast<float4*>(packed + walk_feat_elems<T>(cin, B, Mp));
   pw_walk_pack_kernel<Tag, T, Tin><<<grid_blocks(n), 256, 0, stream>>>(
-      static_cast<const Tin*>(feats), packed, B, Mp, cin, s.nt, s.ng);
+      static_cast<const Tin*>(feats), pts, packed, boxes, B, Mp, cin, s.nt, s.ng);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if constexpr (DX) {
@@ -774,20 +935,25 @@ int launch_walk(const float* ctr, const float* pts, const void* feats,
   }
   switch (s.nt) {
     case 1:
-      return launch_walk_nt<Tag, T, 1>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
-                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 1>(s, ctr, pts, packed, boxes, scl, tile_ptr, tile_idx,
+                                       cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv,
+                                       stream);
     case 2:
-      return launch_walk_nt<Tag, T, 2>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
-                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 2>(s, ctr, pts, packed, boxes, scl, tile_ptr, tile_idx,
+                                       cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv,
+                                       stream);
     case 4:
-      return launch_walk_nt<Tag, T, 4>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
-                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 4>(s, ctr, pts, packed, boxes, scl, tile_ptr, tile_idx,
+                                       cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv,
+                                       stream);
     case 8:
-      return launch_walk_nt<Tag, T, 8>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
-                                       cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 8>(s, ctr, pts, packed, boxes, scl, tile_ptr, tile_idx,
+                                       cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv,
+                                       stream);
     default:
-      return launch_walk_nt<Tag, T, 16>(s, ctr, pts, packed, scl, tile_ptr, tile_idx, cnt_in,
-                                        cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv, stream);
+      return launch_walk_nt<Tag, T, 16>(s, ctr, pts, packed, boxes, scl, tile_ptr, tile_idx,
+                                        cnt_in, cnt_out, xbar, ldx, B, Ncp, Mp, cin, radius, inv,
+                                        stream);
   }
 }
 

@@ -32,9 +32,11 @@ of pointwise_tpu/kernels/pointwise_conv_pallas.py (see the notes at the top
 of each CUDA source).  Each walks, for each row tile of ``TILE`` points, a
 list of ``TILE``-point tiles of the other side: every tile (the dense walk,
 ``tile_ptr=tile_idx=None``) or the bbox-adjacent ones from
-``tile_adjacency`` (the CSR walk).  ``LAUNCHES`` counts the launches of each
-kernel and walk mode, ``HOST_SYNCS`` the program's calls that block the host
-until the card catches up.
+``tile_adjacency`` (the CSR walk); each walk CTA of 16 rows walks only the
+16-candidate k-steps of its list whose box lies within the radius of its
+rows' box (the cull, ``walk_cull_share``).  ``LAUNCHES`` counts the launches
+of each kernel and walk mode, ``HOST_SYNCS`` the program's calls that block
+the host until the card catches up.
 
 Shared contract (all padded by the op layer, ops/pointwise_conv.py):
   ctr   (B, Ncp, 3) f32  centers; padding and masked centers at -SENTINEL
@@ -84,6 +86,9 @@ SENTINEL = 1.0e6
 _SENTINEL_CUT = 5.0e5
 
 TILE = 64              # center-list row tile and candidate tile (points)
+WALK_M = 16            # rows of one walk CTA (csrc/pointwise_conv_walk.cuh)
+WALK_K = 16            # candidates of one k-step, the walk's culled group
+_BOX_EMPTY = 1.0e9     # a box of padding alone: lo = 1e9 > hi = -1e9
 _MAX_SMEM = 232_448    # dynamic shared memory one block may use on sm_90
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
@@ -470,7 +475,8 @@ def _check_means(ctr, pts, feats, tile_ptr, tile_idx, cnt_in):
 
 
 def _pack_scratch(lib_elems, cin, bf16, B, Mp, dev):
-    """The walk's packed-feature scratch (bf16 terms of the features)."""
+    """The walk's pack scratch: the bf16 terms of the features, then the
+    boxes of the candidates' k-steps that the walk's cull reads."""
     return torch.empty(lib_elems(cin, bf16, B, Mp), dtype=torch.bfloat16,
                        device=dev)
 
@@ -1128,3 +1134,77 @@ def tile_adjacency(ctr, pts, radius: float):
     lo_r, hi_r = _row_tile_boxes(ctr, TILE)
     lo_c, hi_c = _row_tile_boxes(pts, TILE)
     return _boxes_adjacency(radius, lo_r, hi_r, lo_c, hi_c)
+
+
+# ---- the walk's cull, as the kernel decides it (plain tensor code) -------
+
+
+def walk_boxes(p, n: int = WALK_K):
+    """Boxes (lo, hi), each (B, N/n, 3) f32, of every ``n`` consecutive
+    points of (B, N, 3), as the walk forms them: a point with any
+    coordinate at |x| >= ``_SENTINEL_CUT`` (padding) is left out, and a box
+    of padding alone is empty (lo 1e9 > hi -1e9).  No host sync."""
+    B, N, _ = p.shape
+    t = p.reshape(B, N // n, n, 3)
+    real = (t.abs() < _SENTINEL_CUT).all(dim=-1, keepdim=True)
+    return (torch.where(real, t, _BOX_EMPTY).amin(dim=2),
+            torch.where(real, t, -_BOX_EMPTY).amax(dim=2))
+
+
+def walk_keeps(row_lo, row_hi, grp_lo, grp_hi, radius: float):
+    """Whether the walk keeps a k-step: the squared gap of a group's box
+    (grp_lo, grp_hi) to the box of a CTA's rows (row_lo, row_hi), each
+    axis max(grp_lo - row_hi, row_lo - grp_hi, 0) rounded in f32 and the
+    squares summed in x, y, z order, is at most r*r rounded in f32.  Any
+    (..., 3) shapes that broadcast.  Rounding is monotone, so this gap is
+    at most ``pair_code``'s d2 of any pair of the two boxes: a dropped
+    group holds no in-ball pair of those rows."""
+    d2 = None
+    for a in range(3):
+        gap = torch.clamp_min(torch.maximum(grp_lo[..., a] - row_hi[..., a],
+                                            row_lo[..., a] - grp_hi[..., a]),
+                              0.0)
+        d2 = gap * gap if d2 is None else d2 + gap * gap
+    r = np.float32(radius)
+    return d2 <= float(r * r)
+
+
+def walk_cull_counts(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
+    """(kept, listed): the k-steps of ``WALK_K`` candidates that the walks'
+    CTAs keep and that their lists hold, summed over every block of
+    ``WALK_M`` rows (once per row block, whatever the CTAs of a block).
+    ``ctr`` are the walk's rows and ``pts`` its columns (for dX: the
+    candidates and the centers, with the transposed list)."""
+    B, Ncp, Mp = _check_walk(ctr, pts, tile_ptr, tile_idx)
+    r_lo, r_hi = walk_boxes(ctr, WALK_M)
+    g_lo, g_hi = walk_boxes(pts, WALK_K)
+    n_rows, n_cols = Ncp // TILE, Mp // TILE
+    dev = ctr.device
+    if tile_ptr is None:
+        entries = torch.arange(B * n_rows * n_cols, device=dev)
+        row, col = entries // n_cols, entries % n_cols
+    else:
+        row = torch.repeat_interleave(
+            torch.arange(B * n_rows, device=dev),
+            (tile_ptr[1:] - tile_ptr[:-1]).long())
+        col = tile_idx.long()
+    b, row = row // n_rows, row % n_rows
+    per = TILE // WALK_K
+    sub = torch.arange(per, device=dev)
+    kept, chunk = 0, 1 << 16           # list entries tested at a time
+    for e0 in range(0, row.numel(), chunk):
+        bb = b[e0:e0 + chunk, None, None]
+        rr = (row[e0:e0 + chunk, None] * (TILE // WALK_M)
+              + torch.arange(TILE // WALK_M, device=dev))[:, :, None]
+        gg = (col[e0:e0 + chunk, None] * per + sub)[:, None, :]
+        kept += int(walk_keeps(r_lo[bb, rr], r_hi[bb, rr], g_lo[bb, gg],
+                               g_hi[bb, gg], radius).sum())
+    return kept, row.numel() * (TILE // WALK_M) * per
+
+
+def walk_cull_share(ctr, pts, radius: float, tile_ptr=None, tile_idx=None):
+    """The share of the listed k-steps that the walks' CTAs keep, as the
+    kernel decides it (``walk_cull_counts``; 1.0 for an empty list).  Off
+    the main path: the tools and tests read it."""
+    kept, listed = walk_cull_counts(ctr, pts, radius, tile_ptr, tile_idx)
+    return kept / listed if listed else 1.0

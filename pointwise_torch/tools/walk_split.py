@@ -4,6 +4,8 @@
         [--points 1000000 200000] [--layers 0 2]
     python -m pointwise_torch.tools.walk_split --blocks 8 \
         --config s3dis_synthetic_local --layers 0 1 2 3
+    python -m pointwise_torch.tools.walk_split --shapes 32 \
+        --config shapenetpart --layers 0 5
     python -m pointwise_torch.tools.walk_split --device cpu \
         --config seg_tiny_stream --points 3000 --layers 0 1
 
@@ -13,8 +15,11 @@ keeps, per conv layer, the inputs of its largest call (the conv layer's
 index is the index of its radius in the config's radii); with
 ``--blocks B`` it runs the config's segmenter once on its first B
 training blocks instead (``s3dis.training_blocks``, the training step's
-morton-sorted blocks of ``num_points``).  Then, for each layer of
-``--layers``:
+morton-sorted blocks of ``num_points``), and with ``--shapes B`` on B
+synthetic part-segmentation shapes of ``num_points``, xyz as features
+(``shapenetpart.load_shapenetpart``, morton-sorted: the part segmenter's
+trunk convs see the same points, widths and radii).  Then, for each layer
+of ``--layers``:
 
 - ``ms``: the card ms of ``conv_fwd_means`` (the main path's walk, CSR
   or dense as the op chose; CUDA events over ``REPS`` calls after one
@@ -29,10 +34,16 @@ morton-sorted blocks of ``num_points``).  Then, for each layer of
   coordinates), ``wait`` (cp.async.wait_all and the two __syncthreads of
   an iteration), ``tests`` (the per-cell compares, __any_sync and the
   planes' masks), ``mma`` (ldmatrix and mma.sync), ``epilogue`` (the
-  means and their stores).  ``share``: each part's cycles over all
-  warps' cycles; ``instrumented_ms`` its card ms (the stamps' own cost
-  shows as the gap to ``ms``); its xbar and counts must equal the main
-  kernel's bit for bit, or the tool raises.
+  means and their stores), ``cull`` (the rows' box and the box tests of
+  the listed k-steps).  ``share``: each part's cycles over all warps'
+  cycles; ``instrumented_ms`` its card ms (the stamps' own cost shows as
+  the gap to ``ms``); its xbar and counts must equal the main kernel's
+  bit for bit, or the tool raises;
+- ``cull_share``: the share of the listed k-steps that the forward's (and
+  dW's) walk keeps, from the plain ``walk_cull_share`` (not with
+  ``--no-split``); on the card ``ksteps``, the k-steps the instrumented
+  walk's CTAs kept and listed, whose ratio must equal ``cull_share``, or
+  the tool raises.
 
 One JSON record per (request, layer), with the card's name and power
 limit.  ``--no-split`` times the main walk alone (nothing is built): run
@@ -53,7 +64,7 @@ import subprocess
 import torch
 
 from pointwise_torch import infer, resolve_device
-from pointwise_torch.data import s3dis
+from pointwise_torch.data import s3dis, shapenetpart
 from pointwise_torch.kernels import pointwise_conv_cuda as tk
 from pointwise_torch.models.layers import PointwiseConv
 from pointwise_torch.ops.pointwise_conv import conv_layout, csr_walk
@@ -61,7 +72,7 @@ from pointwise_torch.train import get_config
 from pointwise_torch.utils.runtime import (NOT_MEASURED, event_ms,
                                            nvidia_smi_line)
 
-PARTS = ("codes", "stage", "wait", "tests", "mma", "epilogue")
+PARTS = ("codes", "stage", "wait", "tests", "mma", "epilogue", "cull")
 SOURCE = "pointwise_conv_walk_split.cu"
 BUILD_DIR = os.path.join(tk._BUILD_DIR, "walk_split")
 REPS = 5
@@ -89,17 +100,19 @@ def build():
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pw_split_fwd_means.argtypes = [vp] * 8 + [ci] * 5 + [cf, cf, vp]
     lib.pw_split_read.argtypes = [vp]
+    lib.pw_split_read_ksteps.argtypes = [vp]
     if lib.pw_split_parts() != len(PARTS):
         raise RuntimeError(f"the kernel has {lib.pw_split_parts()} parts, "
                            f"not {len(PARTS)}")
     return lib
 
 
-def capture(cfg_name, points, dev, blocks=0):
-    """Serve ``synth:<n>`` for each n of ``points``, or with ``blocks`` run
-    the segmenter on that many training blocks; returns {(request, layer):
-    (module, conv inputs)} of each layer's largest call, the request
-    ``synth:<n>`` or ``blocks:<B>x<num_points>``."""
+def capture(cfg_name, points, dev, blocks=0, shapes=0):
+    """Serve ``synth:<n>`` for each n of ``points``, or with ``blocks`` /
+    ``shapes`` run the segmenter on that many training blocks / shapes;
+    returns {(request, layer): (module, conv inputs)} of each layer's
+    largest call, the request ``synth:<n>``, ``blocks:<B>x<num_points>``
+    or ``shapes:<B>x<num_points>``."""
     args = infer.parse_args(["--serve", "--config", cfg_name, "--device",
                              dev.type, "--warm-points", "0"])
     cfg = get_config(cfg_name)
@@ -128,7 +141,13 @@ def capture(cfg_name, points, dev, blocks=0):
             current[0] = f"blocks:{blocks}x{cfg.num_points}"
             with torch.inference_mode():
                 model(t("points"), t("features"), t("mask"))
-        for n in ([] if blocks else points):
+        if shapes:
+            data = shapenetpart.load_shapenetpart(
+                None, n_points=cfg.num_points, synthetic_size=shapes)
+            current[0] = f"shapes:{shapes}x{cfg.num_points}"
+            with torch.inference_mode():
+                model(torch.from_numpy(data.points).to(dev))
+        for n in ([] if blocks or shapes else points):
             current[0] = f"synth:{n}"
             infer.serve(args, cfg, model, requests=[current[0]], emit=emit)
     finally:
@@ -153,9 +172,12 @@ def split_layer(lib, mod, inputs, dev) -> dict:
                    B * (Ncp // tk.TILE) * (Mp // tk.TILE) if idx is None
                    else int(idx.numel())),
                pairs=float(cnt.sum()), precision=mod.precision)
+    if dev.type != "cuda" or lib is not None:
+        rec["cull_share"] = tk.walk_cull_share(ctr, pts, radius, ptr, idx)
     if dev.type != "cuda":
         return dict(rec, ms=NOT_MEASURED, instrumented_ms=NOT_MEASURED,
-                    cycles=NOT_MEASURED, share=NOT_MEASURED)
+                    cycles=NOT_MEASURED, share=NOT_MEASURED,
+                    ksteps=NOT_MEASURED)
     ms = event_ms(lambda: tk.conv_fwd_means(*means), REPS)
     if lib is None:
         return dict(rec, ms=ms)
@@ -184,15 +206,22 @@ def split_layer(lib, mod, inputs, dev) -> dict:
         raise RuntimeError("pw_split_reset failed")
     inst_ms = event_ms(run, 1, warmup=0)
     cycles = (ctypes.c_ulonglong * len(PARTS))()
-    if lib.pw_split_read(ctypes.addressof(cycles)) != 0:
+    ksteps = (ctypes.c_ulonglong * 2)()
+    if lib.pw_split_read(ctypes.addressof(cycles)) != 0 \
+            or lib.pw_split_read_ksteps(ctypes.addressof(ksteps)) != 0:
         raise RuntimeError("pw_split_read failed")
     if not (torch.equal(out[:, :k], xbar) and torch.equal(cnt2, cnt)):
         raise AssertionError("the instrumented walk's means or counts "
                              "differ from the main kernel's")
+    kept, listed = int(ksteps[0]), int(ksteps[1])
+    if (kept / listed if listed else 1.0) != rec["cull_share"]:
+        raise AssertionError(f"the instrumented walk kept {kept} of {listed} "
+                             f"k-steps, not a share of {rec['cull_share']}")
     total = sum(cycles)
     return dict(rec, ms=ms, instrumented_ms=inst_ms,
                 cycles=dict(zip(PARTS, (int(c) for c in cycles))),
-                share={p: c / total for p, c in zip(PARTS, cycles)})
+                share={p: c / total for p, c in zip(PARTS, cycles)},
+                ksteps=dict(kept=kept, listed=listed))
 
 
 def parse_args(argv=None):
@@ -205,6 +234,10 @@ def parse_args(argv=None):
     ap.add_argument("--blocks", type=int, default=0,
                     help="run the segmenter on this many training blocks "
                          "in place of the served requests")
+    ap.add_argument("--shapes", type=int, default=0,
+                    help="run the segmenter on this many synthetic "
+                         "part-segmentation shapes in place of the served "
+                         "requests")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--no-split", dest="split", action="store_false",
@@ -218,7 +251,7 @@ def main(argv=None) -> list:
     dev = resolve_device(args.device)
     lib = build() if dev.type == "cuda" and args.split else None
     card = nvidia_smi_line() if dev.type == "cuda" else "cpu"
-    calls = capture(args.config, args.points, dev, args.blocks)
+    calls = capture(args.config, args.points, dev, args.blocks, args.shapes)
     recs = []
     for req in dict.fromkeys(key[0] for key in calls):
         for layer in args.layers:

@@ -14,17 +14,23 @@ is held to 1e-4 relative to max |want| in both types: only the order of
 its f32 sums differs.
 """
 
+import importlib
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
 
-from pointwise_torch.data import synthetic
+from pointwise_torch.data import shapenetpart, synthetic
 from pointwise_torch.kernels import pointwise_conv_cuda as tk
 from pointwise_torch.ops import pointwise_conv
 from pointwise_torch.ops.pointwise_conv import conv_layout
+from pointwise_torch.tools import walk_split
 from pointwise_torch.utils.spatial import morton_sort
 
 pytestmark = pytest.mark.cuda
+# the op layer's module (the package's ``pointwise_conv`` is the function)
+op_module = importlib.import_module("pointwise_torch.ops.pointwise_conv")
 
 
 @pytest.fixture
@@ -622,3 +628,101 @@ def test_dw_product_kernel(cuda, cin, cout, rows):
         xf = x[:, :k]
         _close(tk.conv_dw_product(xf, g), tk.conv_dw_product_plain(xf, g),
                "float32")
+
+
+def _cull_scene(case, dev):
+    """(points (B, N, 3), radius) of one cull case: 32 synthetic 2,048-point
+    shapes at the smallest and the largest radius of the part segmenter,
+    32 x 1,024 clouds at the classifier's largest (scaled by 1.25, its
+    augmentation's top: all but a few outliers' k-steps kept), and two
+    clusters 4 apart at r = 0.5 (each CTA drops the other cluster)."""
+    if case.startswith("shapes"):
+        pts = shapenetpart.load_shapenetpart(None, n_points=2048,
+                                             synthetic_size=32).points
+        r = float(case.split("_")[1])
+    elif case == "clouds":
+        pts = shapenetpart.load_shapenetpart(
+            None, n_points=1024, synthetic_size=32).points * np.float32(1.25)
+        r = 2.0
+    else:
+        a = shapenetpart.load_shapenetpart(None, n_points=1024,
+                                           synthetic_size=4).points * 0.5
+        pts = np.concatenate([a, a + np.float32([4.0, 0.0, 0.0])], 1)
+        r = 0.5
+    return torch.from_numpy(np.ascontiguousarray(pts, np.float32)).to(dev), r
+
+
+@pytest.mark.parametrize("case", ["shapes_0.1", "shapes_0.6", "clouds",
+                                  "clusters"])
+def test_cull_keeps_the_walks_equalities(cuda, case):
+    # the forward's TMA walk, dW's and dX's cp.async walks with the cull,
+    # 124 wide in bf16: dense == CSR, two runs, the counts the counts
+    # kernel's and the plain version's, dW's means the forward's
+    pts, r = _cull_scene(case, cuda)
+    rng = np.random.RandomState(3)
+    feats = torch.from_numpy(rng.standard_normal(
+        pts.shape[:2] + (124,)).astype(np.float32)).to(cuda)
+    w = torch.zeros((27, 124, 124), device=cuda)
+    g = torch.from_numpy(rng.standard_normal(
+        (pts.shape[0], tk.round_up(pts.shape[1], tk.TILE), 124)).astype(
+        np.float32)).to(cuda)
+    outs = {}
+    for csr in (False, True):
+        kw, _ = conv_layout(pts, feats, w, None, radius=r,
+                            precision="bfloat16", csr=csr)
+        walk = (kw["ctr"], kw["pts"], kw["feats"], r, kw["tile_ptr"],
+                kw["tile_idx"])
+        xbar, cnt = tk.conv_fwd_means(*walk)
+        again, _ = tk.conv_fwd_means(*walk)
+        xbar_dw = tk.conv_dw_means(*walk[:3], cnt, r, *walk[4:])
+        ptr_t = idx_t = None
+        if csr:
+            ptr_t, idx_t = tk.tile_adjacency(kw["pts"], kw["ctr"], r)
+        dx_args = (kw["ctr"], kw["pts"], g, cnt, r, ptr_t, idx_t,
+                   torch.bfloat16)
+        z, z2 = tk.conv_dx_sums(*dx_args), tk.conv_dx_sums(*dx_args)
+        counts = tk.conv_counts(kw["ctr"], kw["pts"], r, kw["tile_ptr"],
+                                kw["tile_idx"])
+        share = tk.walk_cull_share(*walk[:2], r, *walk[4:])
+        torch.cuda.synchronize()
+        assert cnt.sum() > 0
+        assert torch.equal(cnt, counts)
+        assert torch.equal(xbar, again) and torch.equal(xbar, xbar_dw)
+        assert torch.equal(z, z2)
+        if case == "clouds":              # a few outliers beyond 2.0
+            assert share > 0.99
+        else:       # the CSR lists hold a part of the dense walk's k-steps
+            assert share < (1.0 if csr else 0.25 if case == "shapes_0.1"
+                            else 0.6)
+        outs[csr] = (xbar, cnt, z)
+    for a, b in zip(outs[False], outs[True]):
+        assert torch.equal(a, b)
+    if case != "shapes_0.6":           # the plain counts: a few seconds
+        assert torch.equal(outs[False][1], tk.conv_counts_plain(
+            kw["ctr"], kw["pts"], r, kw["tile_ptr"], kw["tile_idx"]))
+
+
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_instrumented_walk_counts_the_kept_ksteps(cuda, csr, monkeypatch):
+    # the instrumented walk (pointwise_torch/tools/walk_split.py) counts the
+    # k-steps its CTAs keep: their share is walk_cull_share's (the tool
+    # raises otherwise), and every CTA of a row block lists the same k-steps
+    pts, r = _cull_scene("shapes_0.1", cuda)
+    pts = pts[:8]
+    feats = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        pts.shape[:2] + (124,)).astype(np.float32)).to(cuda)
+    w = torch.zeros((27, 124, 8), device=cuda)
+    if csr:     # the op takes the CSR walk from 3,585 candidates: force it
+        monkeypatch.setattr(op_module, "_CSR_MIN_TILES", 1)
+    mod = SimpleNamespace(kernel=w, bias=None, radius=r,
+                          precision="bfloat16")
+    rec = walk_split.split_layer(walk_split.build(), mod,
+                                 (pts, feats, None, None, None), cuda)
+    kw, _ = conv_layout(pts, feats, w, radius=r, precision="bfloat16")
+    kept, listed = tk.walk_cull_counts(kw["ctr"], kw["pts"], r,
+                                       kw["tile_ptr"], kw["tile_idx"])
+    ks = rec["ksteps"]
+    assert rec["walk"] == ("csr" if csr else "dense")
+    assert ks["listed"] % listed == 0
+    assert ks["kept"] == kept * (ks["listed"] // listed)
+    assert 0 < kept < listed and rec["cull_share"] == kept / listed

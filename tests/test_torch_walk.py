@@ -38,7 +38,7 @@ import pytest
 import torch
 
 from pointwise_tpu.ops import pointwise_conv as jax_conv
-from pointwise_torch.data import synthetic
+from pointwise_torch.data import shapenetpart, synthetic
 from pointwise_torch.kernels import pointwise_conv_cuda as tk
 from pointwise_torch.ops.pointwise_conv import conv_layout
 from pointwise_torch.utils.spatial import morton_sort
@@ -65,10 +65,36 @@ def split3(x):
     return hi, mid, lo
 
 
-def mirror_walk(ctr, pts, feats, radius, tile_ptr=None, tile_idx=None):
+class Cull:
+    """The walk's cull as the kernel decides it (``tk.walk_boxes``,
+    ``tk.walk_keeps``): ``keep(b, m0, j0)`` whether the CTA of rows m0 ..
+    m0 + 15 walks the k-step of columns j0 .. j0 + 15, counting the k-steps
+    kept and listed and the in-ball pairs of the dropped ones (``dropped``:
+    a conservative cull drops none)."""
+
+    def __init__(self, rows, cols, radius):
+        self.rows, self.cols = tk.walk_boxes(rows, WALK_M), \
+            tk.walk_boxes(cols, K_STEP)
+        self.radius = radius
+        self.kept = self.listed = self.dropped = 0
+
+    def keep(self, b, m0, j0, ok):
+        m, j = m0 // WALK_M, j0 // K_STEP
+        keep = bool(tk.walk_keeps(self.rows[0][b, m], self.rows[1][b, m],
+                                  self.cols[0][b, j], self.cols[1][b, j],
+                                  self.radius))
+        self.kept += keep
+        self.listed += 1
+        self.dropped += 0 if keep else int(ok.sum())
+        return keep
+
+
+def mirror_walk(ctr, pts, feats, radius, tile_ptr=None, tile_idx=None,
+                cull=None):
     """(sums (B, Ncp, 27, Cin) f32, counts (B, Ncp, 27) f32) as the kernel
-    forms them: 16 centers at a time, each listed candidate tile in order,
-    per 16 x 16 block only the cells it holds, plane x terms in f32."""
+    forms them: 16 centers at a time, each listed candidate tile in order
+    (with a ``Cull``, only the k-steps it keeps), per 16 x 16 block only the
+    cells it holds, plane x terms in f32."""
     B, Ncp, _ = ctr.shape
     Mp, cin = pts.shape[1], feats.shape[2]
     terms = [t.float() for t in (split3(feats) if feats.dtype == torch.float32
@@ -94,6 +120,8 @@ def mirror_walk(ctr, pts, feats, radius, tile_ptr=None, tile_idx=None):
                         q = pts[b, j0:j0 + K_STEP]
                         code, ok = tk._pair_codes(q[None] - c[:, None],
                                                   radius)
+                        if cull is not None and not cull.keep(b, m0, j0, ok):
+                            continue
                         code = torch.where(ok, code, torch.full_like(code,
                                                                      255))
                         plane = (code[None] == cells).float()  # (27, 16, 16)
@@ -249,9 +277,10 @@ def test_means_and_product_compose_to_the_forward():
 
 
 def mirror_dx_walk(ctr, pts, g, cnt, radius, tile_ptr=None, tile_idx=None,
-                   dtype=torch.float32):
+                   dtype=torch.float32, cull=None):
     """dX's sums Z (B, Mp, 27, Cout) f32 as the kernel forms them: 16
-    candidates at a time, each listed center tile in order, per 16 x 16
+    candidates at a time, each listed center tile in order (with a ``Cull``
+    of rows pts and columns ctr, only the k-steps it keeps), per 16 x 16
     block only the cells it holds, the scaled plane's terms times g's
     terms in f32."""
     B, Ncp, _ = ctr.shape
@@ -283,6 +312,8 @@ def mirror_dx_walk(ctr, pts, g, cnt, radius, tile_ptr=None, tile_idx=None,
                         # pair_code(candidate, center): the row's candidate
                         code, ok = tk._pair_codes(q[:, None] - c[None],
                                                   radius)
+                        if cull is not None and not cull.keep(b, m0, j0, ok):
+                            continue
                         code = torch.where(ok, code,
                                            torch.full_like(code, 255))
                         on = code[None] == cells             # (27, 16, 16)
@@ -463,3 +494,182 @@ def test_dx_sums_and_product_match_jax_vjp(precision):
         np.testing.assert_allclose(got.numpy(), want, rtol=1e-4,
                                    atol=1e-4 * scale)
 
+
+
+# ---- the walk's cull: each CTA drops the k-steps whose box lies beyond r
+# of the box of its own rows (csrc/pointwise_conv_walk.cuh) -------------
+
+
+def assert_cull_changes_no_bit(ctr, pts, feats, radius, tile_ptr=None,
+                               tile_idx=None, g=None):
+    """The mirrors with and without the cull, bit for bit: the forward's
+    sums and counts, dW's means and product, and (with ``g``) dX's sums on
+    the transposed list; every dropped k-step free of in-ball pairs, and
+    the k-steps kept and listed those of ``walk_cull_counts``.  Returns
+    the forward's and dX's ``Cull``."""
+    walk = (ctr, pts, feats, radius, tile_ptr, tile_idx)
+    cull = Cull(ctr, pts, radius)
+    sums, cnt = mirror_walk(*walk, cull=cull)
+    sums_u, cnt_u = mirror_walk(*walk)
+    assert torch.equal(sums, sums_u) and torch.equal(cnt, cnt_u)
+    assert cull.dropped == 0
+    assert (cull.kept, cull.listed) == tk.walk_cull_counts(
+        ctr, pts, radius, tile_ptr, tile_idx)
+    xbar = (sums / torch.clamp_min(cnt, 1.0)[..., None]).to(feats.dtype)
+    xbar = xbar.reshape(-1, 27 * feats.shape[2])
+    gw = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (xbar.shape[0], 5)).astype(np.float32))
+    xbar_u = (sums_u / torch.clamp_min(cnt_u, 1.0)[..., None]).to(
+        feats.dtype).reshape(xbar.shape)
+    assert torch.equal(mirror_dw_product(xbar, gw)[0],
+                       mirror_dw_product(xbar_u, gw)[0])
+    cull_dx = None
+    if g is not None:
+        ptr_t = idx_t = None
+        if tile_ptr is not None:
+            ptr_t, idx_t = tk.tile_adjacency(pts, ctr, radius)
+        args = (ctr, pts, g, cnt, radius, ptr_t, idx_t)
+        cull_dx = Cull(pts, ctr, radius)
+        z = mirror_dx_walk(*args, dtype=feats.dtype, cull=cull_dx)
+        assert torch.equal(z, mirror_dx_walk(*args, dtype=feats.dtype))
+        assert cull_dx.dropped == 0
+        assert (cull_dx.kept, cull_dx.listed) == tk.walk_cull_counts(
+            pts, ctr, radius, ptr_t, idx_t)
+    return cull, cull_dx
+
+
+def shapes(seed, b=1, n=256, scale=1.0):
+    """``b`` synthetic part-segmentation shapes of ``n`` points in the unit
+    sphere, morton-sorted as the loader sorts them, times ``scale`` (the
+    clouds' augmentation scales by 0.8-1.25)."""
+    data = shapenetpart.synthetic_set(seed, b, n)
+    return torch.from_numpy(np.stack([morton_sort(c) for c in data.points])
+                            * np.float32(scale))
+
+
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+@pytest.mark.parametrize("cin", [3, 6, 124])
+@pytest.mark.parametrize("geometry,radius", [("shapes", 0.1),
+                                             ("shapes", 0.6),
+                                             ("clouds", 2.0)])
+def test_cull_changes_no_bit(geometry, radius, cin, csr):
+    # the shapes' smallest and largest radius, and the clouds' largest
+    # (everything within r: nothing dropped)
+    pts = shapes(cin, scale=1.0 if geometry == "shapes" else 1.25)
+    rng = np.random.RandomState(cin)
+    precision = "bfloat16" if cin == 124 else "float32"
+    kw, _ = conv_layout(pts, torch.from_numpy(rng.standard_normal(
+        (1, pts.shape[1], cin)).astype(np.float32)),
+        torch.zeros((27, cin, 5)), radius=radius, precision=precision,
+        csr=csr)
+    g = torch.from_numpy(rng.standard_normal(
+        (1, kw["ctr"].shape[1], 5)).astype(np.float32))
+    cull, cull_dx = assert_cull_changes_no_bit(
+        kw["ctr"], kw["pts"], kw["feats"], radius, kw["tile_ptr"],
+        kw["tile_idx"], g)
+    if radius == 2.0:
+        assert cull.kept == cull.listed and cull_dx.kept == cull_dx.listed
+    else:
+        assert 0 < cull.kept < cull.listed and 0 < cull_dx.kept < cull_dx.listed
+
+
+def _at(x, y, z):
+    return np.array([x, y, z], np.float32)
+
+
+def test_cull_keeps_pairs_at_exactly_r_across_a_box_face():
+    # 16 centers on x in [0, 0.5]; one k-step per candidate, 16 copies
+    # each: exactly r = 0.375 across the +x, +y and -z faces (kept), the
+    # float32 neighbours of the +x one (the nearer kept, the farther
+    # dropped), one across a corner at about r (0.225, 0.3: kept or dropped
+    # as pair_code's rounding puts it) with its neighbour, one inside
+    r = 0.375
+    x_hi = np.float32(0.875)
+    cands = [_at(x_hi, 0, 0), _at(np.nextafter(x_hi, np.float32(2)), 0, 0),
+             _at(np.nextafter(x_hi, np.float32(0)), 0, 0),
+             _at(0.725, 0.3, 0), _at(np.nextafter(np.float32(0.725),
+                                                  np.float32(2)), 0.3, 0),
+             _at(0.25, 0.375, 0), _at(0.25, 0, -0.375),
+             _at(0.25, 0.25, 0.25)]
+    pts = np.full((1, 2 * tk.TILE, 3), tk.SENTINEL, np.float32)
+    pts[0, :16 * len(cands)] = np.repeat(np.stack(cands), 16, axis=0)
+    ctr = np.full((1, tk.TILE, 3), -tk.SENTINEL, np.float32)
+    ctr[0, :16] = 0.0
+    ctr[0, :16, 0] = np.arange(16, dtype=np.float32) / np.float32(30.0)
+    assert ctr[0, 15, 0] == np.float32(0.5)
+    ctr, pts = torch.from_numpy(ctr), torch.from_numpy(pts)
+    feats = torch.from_numpy(np.random.RandomState(1).standard_normal(
+        (1, pts.shape[1], 6)).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(2).standard_normal(
+        (1, tk.TILE, 5)).astype(np.float32))
+    assert_cull_changes_no_bit(ctr, pts, feats, r, g=g)
+    cull = Cull(ctr, pts, r)
+    keep = [cull.keep(0, 0, 16 * i, torch.zeros(1)) for i in range(8)]
+    assert keep[:3] == [True, False, True] and keep[5:] == [True, True, True]
+    # the pairs at exactly r are in the ball, the farther neighbour's not
+    cnt = tk.conv_counts_plain(ctr, pts, r)
+    assert float(cnt.sum()) > 0
+    lone = torch.full((1, tk.TILE, 3), tk.SENTINEL)
+    lone[0, :2] = pts[0, [0, 16]]              # exactly r, its neighbour
+    assert float(tk.conv_counts_plain(ctr, lone, r)[0, 15].sum()) == 1.0
+
+
+def test_cull_box_leaves_sentinel_rows_out():
+    # a CTA of 8 real centers near the origin and 8 masked (-SENTINEL): the
+    # masked ones must not widen its box; a CTA of padding alone walks
+    # nothing
+    pts = shapes(3, n=256)
+    ctr = torch.full((1, tk.TILE, 3), -tk.SENTINEL)
+    ctr[0, :16:2] = pts[0, :8]
+    radius = 0.1
+    feats = torch.from_numpy(np.random.RandomState(4).standard_normal(
+        (1, 256, 6)).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(5).standard_normal(
+        (1, tk.TILE, 5)).astype(np.float32))
+    cull, cull_dx = assert_cull_changes_no_bit(ctr, pts, feats, radius, g=g)
+    same = ctr.clone()
+    same[0, 1:16:2] = ctr[0, 0]          # the same box, no padding in it
+    per_block = 256 // K_STEP
+    assert cull.listed == 4 * per_block
+    assert cull.kept == tk.walk_cull_counts(same, pts, radius)[0]
+    assert 0 < cull.kept < per_block     # the padded CTAs keep nothing
+    assert 0 < cull_dx.kept < cull_dx.listed
+
+
+def test_cull_with_an_empty_csr_row():
+    # the second center tile lies far from every candidate: its list is
+    # empty, so nothing is listed for it, and the rest is walked as before
+    pts = shapes(5, n=256)
+    ctr = torch.cat([pts[:, :64], pts[:, 64:128] + 10.0], 1)
+    radius = 0.2
+    ptr, idx = tk.tile_adjacency(ctr, pts, radius)
+    n = ptr[1:] - ptr[:-1]
+    assert int(n[1]) == 0 and int(n[0]) > 0
+    feats = torch.from_numpy(np.random.RandomState(6).standard_normal(
+        (1, 256, 3)).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(7).standard_normal(
+        (1, 128, 5)).astype(np.float32))
+    cull, _ = assert_cull_changes_no_bit(ctr, pts, feats, radius, ptr, idx,
+                                         g=g)
+    assert cull.listed == int(n[0]) * 4 * (tk.TILE // K_STEP)
+
+
+def test_cull_drops_a_cluster_beyond_the_radius():
+    # two clusters 4 apart, r = 0.5: each CTA drops every k-step of the
+    # other cluster, whose walk the dense mode lists in full
+    a = shapes(8, n=128) * 0.5
+    pts = torch.cat([a, a + torch.tensor([4.0, 0.0, 0.0])], 1)
+    feats = torch.from_numpy(np.random.RandomState(8).standard_normal(
+        (1, 256, 6)).astype(np.float32))
+    g = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (1, 256, 5)).astype(np.float32))
+    cull, cull_dx = assert_cull_changes_no_bit(pts, pts, feats, 0.5, g=g)
+    blocks = 256 // K_STEP
+    assert cull.listed == blocks * blocks
+    assert cull.kept <= cull.listed // 2 and cull_dx.kept <= cull.listed // 2
+    half = torch.arange(blocks) < blocks // 2
+    keeps = tk.walk_keeps(*(x[0, :, None] for x in tk.walk_boxes(pts, 16)),
+                          *(x[0, None, :] for x in tk.walk_boxes(pts, 16)),
+                          0.5)
+    assert not bool(keeps[half][:, ~half].any())
+    assert not bool(keeps[~half][:, half].any())

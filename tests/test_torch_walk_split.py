@@ -1,6 +1,6 @@
 """The walk-split tool (pointwise_torch/tools/walk_split.py) on the CPU:
-it captures each conv layer's largest call of a served request and runs
-the plain walk on it; the instrumented kernel itself builds and runs only
+it captures each conv layer's largest call of a served request, training
+blocks or shapes and runs the plain walk and the plain cull share on it; the instrumented kernel itself builds and runs only
 on the card.  The main build never compiles the instrumented source, and
 only that source turns the stamps on.  Serving a synthetic room on the
 CPU's dense reference takes minutes, so the test's server runs the model
@@ -39,8 +39,9 @@ def test_walk_split_on_the_cpu(monkeypatch):
         assert r["cin"] == cin and r["card"] == "cpu"
         assert r["pairs"] > 0 and r["tiles_listed"] > 0
         assert r["walk"] == ("csr" if r["csr_by_op"] else "dense")
-        for key in ("ms", "instrumented_ms", "cycles", "share"):
+        for key in ("ms", "instrumented_ms", "cycles", "share", "ksteps"):
             assert r[key] == "not measured"
+        assert 0 < r["cull_share"] <= 1
 
 
 def test_walk_split_on_training_blocks_on_the_cpu():
@@ -50,6 +51,19 @@ def test_walk_split_on_training_blocks_on_the_cpu():
         ("blocks:1x256", 0), ("blocks:1x256", 1)]
     assert all(r["B"] == 1 and r["Mp"] == 256 and r["pairs"] > 0
                for r in recs)
+
+
+def test_walk_split_on_shapes_on_the_cpu():
+    # the part segmenter's shapes (xyz as features), and the share of the
+    # k-steps the cull keeps: the plain walk_cull_share of each layer's walk
+    recs = walk_split.main(["--device", "cpu", "--config",
+                            "shapenetpart_tiny", "--shapes", "2",
+                            "--layers", "0", "1"])
+    assert [(r["request"], r["layer"], r["cin"]) for r in recs] == [
+        ("shapes:2x128", 0, 3), ("shapes:2x128", 1, 8)]
+    for r in recs:
+        assert r["walk"] == "dense" and r["pairs"] > 0
+        assert 0 < r["cull_share"] < 1
 
 
 def test_instrumented_source_stays_out_of_the_main_build():
