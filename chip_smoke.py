@@ -75,10 +75,6 @@ Phases, each printing one JSON line:
            more per block and step (the recompute), dW's and dX's as
            often; each run's peak device memory above what was allocated
            before it, ms per step and device ms per kernel family;
-  trace    one more 200K scene under torch.profiler: the device's busy
-           and idle share of the request, its device ms per kernel family
-           and its costliest device ops (the train phase's traced steps
-           give the same per step);
   exact    streamed logits == a direct full-scene forward on a ~20K scene
            (f32 convs, 2e-4);
   spatial  the ring and gather strategies of spatial parallelism.  (a) One
@@ -141,14 +137,6 @@ Phases, each printing one JSON line:
            at 200K points (device seconds > 0), sweep_seg_conv --quick and
            anchor_sweep at cls_synthetic_hard, 2 seeds x 20 steps (the
            path, not the accuracy);
-  bench    ``python -m pointwise_torch.bench`` in its own process from the
-           repo root, on the kernels built above (900 s limit): exit 0,
-           bench.py's four-key line last (its metric, a finite value >
-           0), its ``#`` diagnostics with every key of ``BENCH_KEYS`` (the
-           ``mfu_*`` keys too on a card of ``bench.PEAK_BF16``), no
-           ``*_error`` but ``tf_cpu_error`` (this machine has no
-           TensorFlow), and every forward, dW, dX and product kernel
-           launched in the bench's run;
   times    each kernel and walk mode timed with CUDA events per layer,
            beside the plain version, the roofline bound of those inputs
            and the max error: the forward's CSR walk on the largest conv
@@ -197,7 +185,6 @@ import dataclasses
 import json
 import math
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -243,18 +230,6 @@ REMAT_RUNS = (("s3dis_synthetic_local", "layer", "csr"),
               ("s3dis_synthetic_local", "batch", "csr"),
               ("shapenetpart", "layer", "dense"),
               ("modelnet40_synthetic", "layer", "dense"))
-# the bench's process: its time limit, and the diagnostics it must print
-BENCH_TIMEOUT_S = 900
-BENCH_KEYS = ("device", "nvidia_smi", "torch", "cuda", "train_step_ms",
-              "train_pts_per_s", "device_peak_bf16_tf", "fwd_pts_per_s",
-              "fwdbwd_pts_per_s", "t_fwd_ms", "t_fwdbwd_ms",
-              "t_fwd_device_ms", "t_fwdbwd_device_ms", "t_fwd_wall_ms",
-              "t_fwdbwd_wall_ms", "precision", "mfu_fwd_measured",
-              "c64_fwd_pts_per_s", "c64_t_fwd_ms", "seg_step_ms",
-              "seg_pts_per_s", "seg_step_device_ms", "seg_pts_per_s_device",
-              "bwd_shape_canaries", "stream_pts_per_s", "stream_steady_s",
-              "stream_1m_pts_per_s", "stream_1m_steady_s", "launches",
-              "launches_by_arm", "max_memory_allocated_bytes")
 
 
 def emit(rec):
@@ -1022,57 +997,6 @@ def phase_tools(dev):
         raise AssertionError(f"anchor_sweep: {anchor}")
 
 
-def phase_bench(dev):
-    """``python -m pointwise_torch.bench`` in a process of its own from the
-    repo root (the kernels already built in kernels/_build/), within
-    ``BENCH_TIMEOUT_S``: exit 0, bench.py's four-key line last on stdout
-    (the metric, a finite value > 0), one ``#`` line on stderr holding
-    ``BENCH_KEYS`` (and the ``mfu_*`` keys on a card of
-    ``bench.PEAK_BF16``) with ``tf_cpu_error`` its only ``*_error``, and
-    every forward, dW, dX and product kernel launched in the run."""
-    import gc
-
-    import torch
-
-    from pointwise_torch import bench
-
-    gc.collect()
-    torch.cuda.empty_cache()       # the earlier phases' cached blocks
-    t0 = time.perf_counter()
-    out = subprocess.run([sys.executable, "-m", "pointwise_torch.bench"],
-                         cwd=os.path.dirname(os.path.abspath(__file__)),
-                         capture_output=True, text=True,
-                         timeout=BENCH_TIMEOUT_S)
-    wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        raise AssertionError(f"the bench exited {out.returncode}:\n"
-                             + out.stderr[-4000:])
-    result = json.loads(out.stdout.strip().splitlines()[-1])
-    diag = [ln for ln in out.stderr.splitlines() if ln.startswith("# {")]
-    diag = json.loads(diag[-1][2:]) if len(diag) == 1 else {}
-    emit({"phase": "bench", "wall_s": wall, "result": result,
-          "diagnostics": diag})
-    need = list(BENCH_KEYS)
-    if bench.peak_bf16(dev):
-        need += ["mfu_fwd", "mfu_fwdbwd", "seg_mfu", "c64_mfu_fwd"]
-    missing = [k for k in need if k not in diag]
-    errors = [k for k in diag if k.endswith("_error") and k != "tf_cpu_error"]
-    launched = diag.get("launches", {})
-    idle = [k for k in ("fwd_dense", "fwd_csr", "fwd_product", "dw_dense",
-                        "dw_csr", "dw_product", "dx_dense", "dx_csr",
-                        "dx_product") if launched.get(k, 0) <= 0]
-    if not (list(result) == ["metric", "value", "unit", "vs_baseline"]
-            and result["metric"] == bench.METRIC
-            and isinstance(result["value"], int)
-            and math.isfinite(result["value"]) and result["value"] > 0
-            and not missing and not errors and not idle
-            and diag.get("bwd_shape_canaries") == "ok"
-            # the TF arm gives its rate or says why it could not
-            and ("tf_cpu_error" in diag) != ("tf_cpu_op_pts_per_s" in diag)):
-        raise AssertionError(f"bench: result {result}, missing {missing}, "
-                             f"errors {errors}, kernels not launched {idle}")
-
-
 def phase_eval(dev, ckpts):
     """``python -m pointwise_torch.eval``'s flows on the train phase's
     checkpoints: rotation voting (12 votes) of the classifier, block voting
@@ -1123,46 +1047,6 @@ def phase_serve_trained(dev, ck, n_points=200_000):
             or not replies[1]["pts_per_s"] > 0:
         raise AssertionError(f"serving the trained checkpoint failed: "
                              f"{replies}")
-
-
-def phase_trace(dev, n_points=200_000, top=8):
-    """Device busy share of one served scene and its costliest device ops
-    (torch.profiler; CUPTI).  Reports "not measured" when the profiler sees
-    no device time."""
-    import torch
-
-    from pointwise_torch import infer
-    from pointwise_torch.streaming import stream_apply_layered
-    from pointwise_torch.train import get_config
-    from pointwise_torch.utils import runtime
-
-    cfg = get_config("s3dis_synthetic")
-    model = infer.build_model(cfg, dev)
-    xyz, rgb, _ = infer.big_scene(n_points, seed=2)
-    feats = infer.scene_features(cfg, xyz, rgb)
-
-    def run():
-        stream_apply_layered(infer.layered_apply(model), xyz, feats,
-                             radii=cfg.radii, tile_size=4.0,
-                             out_dim=cfg.num_classes, device=dev)
-        torch.cuda.synchronize()
-
-    run()                                           # allocator warm-up
-    with runtime.profile(device=dev) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    busy = runtime.device_seconds(prof)
-    rec = {"phase": "trace", "n_points": len(xyz), "wall_s": wall}
-    if busy <= 0:
-        rec["device_busy_s"] = runtime.NOT_MEASURED
-    else:
-        ops = runtime.device_ops(prof)
-        rec.update(device_busy_s=busy, device_idle_share=1.0 - busy / wall,
-                   kernel_ms={k: v * 1e3 for k, v in
-                              runtime.family_seconds(ops).items()},
-                   top=runtime.top_ops(ops, top))
-    emit(rec)
 
 
 def phase_exact(dev, n_points=20_000):
@@ -2148,7 +2032,6 @@ def main():
             launches[name] = rec["launches"][name]
     for name in ("dw_product", "dx_product"):    # both training runs
         launches[name] = sum(rec["launches"][name] for rec in trained.values())
-    phase("trace", phase_trace, dev)
     phase("exact", phase_exact, dev)
     # the ring's launches: the served-scale split (a) for the CSR walk of
     # the external-counts forward, the 2-rank runs (b) for the rest
@@ -2165,7 +2048,6 @@ def main():
               replies)
     phase("subblock", phase_subblock, dev)
     phase("tools", phase_tools, dev)
-    phase("bench", phase_bench, dev)
     t0 = time.perf_counter()
     calls = {k: v for k, v in served.items() if k[0] == "fwd_csr"}
     calls.update(dense_calls(dev, model))

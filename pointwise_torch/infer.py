@@ -48,7 +48,7 @@ from pointwise_torch.kernels import pointwise_conv_cuda as _kernels
 from pointwise_torch.models import PointwiseSegmenter
 from pointwise_torch.parallel import launch
 from pointwise_torch.parallel.mesh import all_reduce, broadcast_text
-from pointwise_torch.streaming import stream_apply, stream_apply_layered
+from pointwise_torch.streaming import stream_apply_layered
 from pointwise_torch.train import get_config
 from pointwise_torch.train.trainer import checkpoint_steps, load_checkpoint
 
@@ -364,9 +364,6 @@ def parse_args(argv=None):
                     help="synthetic scene size when no data dir given")
     ap.add_argument("--tile-size", type=float, default=4.0)
     ap.add_argument("--tile-batch", type=int, default=4)
-    ap.add_argument("--layered", action=argparse.BooleanOptionalAction,
-                    default=True,
-                    help="layer-wise shrinking halos (exact; faster)")
     ap.add_argument("--save-ply", default=None,
                     help="write class-colored predictions as binary PLY")
     ap.add_argument("--repeat", type=int, default=1,
@@ -398,9 +395,6 @@ def main(argv=None, mesh=None, requests=None, emit=None):
     ``--serve`` (default stdin and stdout JSONL), which returns what
     ``serve`` returns."""
     args = parse_args(argv)
-    if (mesh is not None or args.dp or args.sp > 1) and not args.layered:
-        raise ValueError("--dp / --sp shard the layered engine only (drop "
-                         "--no-layered)")
     device, mesh = launch.resolve_rank(args.device, args.dp, args.sp, mesh,
                                        "pointwise_torch.infer")
     lead = mesh is None or mesh.rank == 0
@@ -417,9 +411,6 @@ def main(argv=None, mesh=None, requests=None, emit=None):
                  if mesh.space > 1 else ""), flush=True)
 
     if args.serve:
-        if not args.layered:
-            raise SystemExit("--serve supports only the layered engine "
-                             "(drop --no-layered)")
         return serve(args, cfg, model, requests, emit, mesh)
 
     if args.data_dir:
@@ -432,7 +423,6 @@ def main(argv=None, mesh=None, requests=None, emit=None):
                   flush=True)
     feats = scene_features(cfg, xyz, rgb)
 
-    halo = float(sum(cfg.radii))
     t0 = time.time()
     prog = lambda d, t, b: print(  # noqa: E731
         f"# tiles {d}/{t} (bucket {b}) {time.time()-t0:.1f}s", flush=True
@@ -440,25 +430,14 @@ def main(argv=None, mesh=None, requests=None, emit=None):
     profiles = load_profiles(args.profile_file)
     for rep in range(max(1, args.repeat)):
         t0 = time.time()
-        if args.layered:
-            logits = stream_apply_layered(
-                layered_apply(model), xyz, feats, radii=cfg.radii,
-                tile_size=args.tile_size, out_dim=cfg.num_classes,
-                tile_batch=args.tile_batch,
-                progress=prog if rep == 0 else None,
-                length_profiles=profiles, device=device, mesh=mesh,
-                scene_axis=_scene_axis(mesh))
-            if rep == 0 and lead:
-                save_profiles(args.profile_file, profiles)
-        else:
-            def apply_fn(pts, fts, mask):
-                with torch.inference_mode():
-                    return model(pts, fts, mask)
-
-            logits = stream_apply(
-                apply_fn, xyz, feats, halo=halo, tile_size=args.tile_size,
-                out_dim=cfg.num_classes, tile_batch=args.tile_batch,
-                progress=prog if rep == 0 else None, device=device)
+        logits = stream_apply_layered(
+            layered_apply(model), xyz, feats, radii=cfg.radii,
+            tile_size=args.tile_size, out_dim=cfg.num_classes,
+            tile_batch=args.tile_batch, progress=prog if rep == 0 else None,
+            length_profiles=profiles, device=device, mesh=mesh,
+            scene_axis=_scene_axis(mesh))
+        if rep == 0 and lead:
+            save_profiles(args.profile_file, profiles)
         dt_rep = time.time() - t0
         if args.repeat > 1 and lead:
             print(f"# pass {rep}: {dt_rep:.2f}s -> "
@@ -479,8 +458,7 @@ def main(argv=None, mesh=None, requests=None, emit=None):
         "unit": "points/s",
         "n_points": len(xyz),
         "seconds": round(dt, 2),
-        "halo": halo,
-        "layered": bool(args.layered),
+        "halo": float(sum(cfg.radii)),
         "device": str(device),
     }
     if args.repeat > 1:

@@ -9,7 +9,8 @@ convolution:
     pointwise_torch/native);
   * each tile is processed together with a halo of width H = sum of the
     network's kernel radii (the receptive field of the conv stack), so the
-    tile-interior outputs equal the full-scene computation exactly;
+    tile-interior outputs equal the full-scene computation exactly; the
+    halo shrinks layer by layer to the receptive field that remains;
   * tiles are padded to a small set of bucket sizes and batched per bucket;
   * tile coordinates are re-centered before entering the net — the conv is
     translation-invariant, and this keeps f32 precision over large scenes.
@@ -38,7 +39,6 @@ from pointwise_torch.kernels.pointwise_conv_cuda import (HOST_SYNCS,
 from pointwise_torch.native import GridIndex
 from pointwise_torch.parallel.mesh import all_gather_cat, all_reduce
 from pointwise_torch.utils.runtime import span
-from pointwise_torch.utils.spatial import morton_code
 
 DEFAULT_BUCKETS = (512, 1024, 2048, 4096, 8192, 16384, 32768)
 
@@ -109,80 +109,6 @@ def _bucket_for(n: int, buckets: Sequence[int]) -> int:
     while b < n:
         b *= 2
     return b
-
-
-def stream_apply(
-    apply_fn: Callable,
-    xyz: np.ndarray,
-    features: np.ndarray,
-    *,
-    halo: float,
-    tile_size: float,
-    out_dim: int,
-    buckets: Sequence[int] = DEFAULT_BUCKETS,
-    tile_batch: int = 4,
-    progress: Callable | None = None,
-    device: str | torch.device = "cuda",
-) -> np.ndarray:
-    """Run ``apply_fn(points, features, mask) -> (B, N, out_dim)`` over a
-    whole scene, tile by tile, exactly (the arguments arrive as tensors on
-    ``device``).
-
-    apply_fn must be translation-invariant in ``points`` (pointwise-conv
-    stacks are) and respect ``mask``.  ``halo`` must be >= the receptive
-    field (sum of kernel radii) for exactness.
-
-    Returns (len(xyz), out_dim) float32 outputs for every point.
-    """
-    dev = resolve_device(device)
-    xyz = np.asarray(xyz, np.float32)
-    features = np.asarray(features, np.float32)
-    grid = GridIndex(xyz, tile_size)
-
-    jobs = []
-    for c in grid.nonempty_cells():
-        # interiors come from the index's EXACT cell partition — a float
-        # AABB re-query can disagree by 1 ulp at cell seams
-        interior = grid.cell_points(c)
-        if len(interior) == 0:
-            continue
-        lo = grid.origin + c.astype(np.float32) * tile_size
-        hi = lo + tile_size
-        cand = grid.query_box(lo - halo, hi + halo + 1e-5)
-        # morton order keeps the kernel's tiles spatially compact
-        cand = cand[np.argsort(morton_code(xyz[cand]), kind="stable")]
-        jobs.append((lo + 0.5 * tile_size, interior, cand))
-
-    groups: dict[int, list] = {}
-    for job in jobs:
-        groups.setdefault(_bucket_for(len(job[2]), buckets), []).append(job)
-
-    out = np.zeros((len(xyz), out_dim), np.float32)
-    done = 0
-    for b in sorted(groups):
-        js = groups[b]
-        tbs = max(1, min(tile_batch, (8192 * tile_batch) // b))
-        for s in range(0, len(js), tbs):
-            chunk = js[s : s + tbs]
-            pts = np.full((tbs, b, 3), SENTINEL, np.float32)
-            fts = np.zeros((tbs, b, features.shape[-1]), np.float32)
-            msk = np.zeros((tbs, b), np.float32)
-            for t, (center, _, cand) in enumerate(chunk):
-                k = len(cand)
-                pts[t, :k] = xyz[cand] - center     # translation-invariant
-                fts[t, :k] = features[cand]
-                msk[t, :k] = 1.0
-            logits = apply_fn(*(torch.from_numpy(a).to(dev)
-                                for a in (pts, fts, msk)))
-            logits = logits.float().cpu().numpy()
-            for t, (center, interior, cand) in enumerate(chunk):
-                order = np.argsort(cand)
-                pos = order[np.searchsorted(cand[order], interior)]
-                out[interior] = logits[t, pos]
-            done += len(chunk)
-            if progress:
-                progress(done, len(jobs), b)
-    return out
 
 
 def _nested_candidates(grid, cell, lo, hi, halos):

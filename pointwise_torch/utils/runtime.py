@@ -5,11 +5,10 @@ before the card has run it, so a host clock measures the enqueue unless the
 card is synchronised first: ``sync`` and ``timed`` do that.  Device time
 comes from ``torch.profiler`` (CUPTI): ``device_seconds`` is the union of
 the device's busy intervals in a trace, the one rule every caller uses
-(``profile_device_time``, ``StepWindow``, the tools in
-pointwise_torch/tools and chip_smoke.py).  A union, not a sum: kernels on
-two streams may overlap, and a sum would count that time twice.  When the
-profiler sees no device time (the CPU, or a card it cannot trace) the
-helpers say so (``None``, "not measured") instead of guessing.
+(``StepWindow``, the tools in pointwise_torch/tools and chip_smoke.py).  A
+union, not a sum: kernels on two streams may overlap, and a sum would count
+that time twice.  When the profiler sees no device time (the CPU, or a card
+it cannot trace) the helpers say so ("not measured") instead of guessing.
 
 ``span`` names a phase of the program on the profiler's clock: the
 streaming engine and the trainer open one around each phase, so that a
@@ -218,19 +217,6 @@ def top_ops(ops: dict, top: int, per: float = 1.0) -> list:
     return [{"op": k[:80], "ms": s * 1e3 / per, "calls": n / per}
             for k, (s, n) in sorted(ops.items(), key=lambda kv: -kv[1][0])
             [:top]]
-
-
-def profile_device_time(fn, iters: int = 4, device="cuda") -> float | None:
-    """Device seconds per call of ``fn`` (called once before tracing, then
-    ``iters`` times under the profiler), or None when the profiler saw no
-    device time: an honest miss, never a host time in its place."""
-    iters = max(1, int(iters))
-    sync(fn())
-    with profile(device=device) as prof:
-        for _ in range(iters):
-            fn()
-    busy = device_seconds(prof)
-    return busy / iters if busy > 0 else None
 
 
 class StepWindow:

@@ -124,7 +124,7 @@ def test_port_imports_no_jax():
         "pointwise_torch.train.cli, pointwise_torch.train.trainer, "
         "pointwise_torch.models.classifier, pointwise_torch.data.augment, "
         "pointwise_torch.data.modelnet, pointwise_torch.data.pipeline, "
-        "pointwise_torch.bench, pointwise_torch.tools.export_checkpoint\n"
+        "pointwise_torch.tools.export_checkpoint\n"
         "import runpy\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -127,18 +127,15 @@ def test_cuda_request_without_card_fails():
         main(["--config", "seg_tiny_stream", "--device", "cuda"])
 
 
-@pytest.mark.parametrize("extra", [["--no-layered", "--dp"], ["--sp", "2"],
-                                   ["--checkpoint-dir", "x"]])
+@pytest.mark.parametrize("extra", [["--sp", "2"], ["--checkpoint-dir", "x"]])
 def test_not_yet_ported_flags_fail(extra, tmp_path):
-    # what the port refuses: the plain engine under a mesh (the JAX engine's
-    # stream_apply takes none), --sp without a launcher (the torchrun
-    # command is named; no process group is left behind) and a numbered
-    # step directory that orbax never committed (the JAX trainer's
-    # committed steps are served: test_torch_jax_checkpoint.py)
+    # what the port refuses: --sp without a launcher (the torchrun command
+    # is named; no process group is left behind) and a numbered step
+    # directory that orbax never committed (the JAX trainer's committed
+    # steps are served: test_torch_jax_checkpoint.py)
     import torch.distributed as dist
 
-    want = {"--no-layered": (ValueError, "layered engine only"),
-            "--sp": (RuntimeError, "torchrun --nproc-per-node 2"),
+    want = {"--sp": (RuntimeError, "torchrun --nproc-per-node 2"),
             "--checkpoint-dir": (FileNotFoundError, "x: no committed orbax")}
     err, match = want[extra[0]]
     if extra[0] == "--checkpoint-dir":

@@ -1,9 +1,8 @@
 """The port's runtime helpers and profiler tools on the CPU.
 
 ``pointwise_torch.utils.runtime``: ``sync`` and ``timed`` on CPU tensors,
-``profile_device_time`` returning None where the profiler sees no device
-time (the CPU), the union rule of ``device_seconds`` on crafted overlapping
-device events, ``StepWindow``, and the default device (the card: no card,
+``profile`` seeing no device time on the CPU, the union rule of
+``device_seconds`` on crafted overlapping device events, ``StepWindow``, and the default device (the card: no card,
 an error).  The tools ``attribute_train_step``, ``attribute_streaming`` and
 ``sweep_seg_conv`` run in this process with ``--device cpu`` at tiny sizes
 and print their records with every device time "not measured"
@@ -57,12 +56,7 @@ def test_sync_and_timed_on_the_cpu():
     assert lines[0].startswith("# [step] ") and lines[0].endswith(" ms")
 
 
-def test_profile_device_time_is_none_without_device_time(tmp_path):
-    calls = []
-    assert runtime.profile_device_time(lambda: calls.append(1) or
-                                       torch.ones(3), iters=3,
-                                       device="cpu") is None
-    assert len(calls) == 4                   # one before tracing, 3 traced
+def test_profile_sees_no_device_time_on_the_cpu(tmp_path):
     with runtime.profile(os.fspath(tmp_path), device="cpu") as prof:
         torch.ones(8).sum()
     assert runtime.device_seconds(prof) == 0.0
@@ -140,7 +134,7 @@ def test_runtime_and_tools_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     for call in (lambda: runtime.timed("x").__enter__(),
-                 lambda: runtime.profile_device_time(lambda: None),
+                 lambda: runtime.profile().__enter__(),
                  lambda: runtime.StepWindow("cuda", 1, 2, 3),
                  lambda: attribute_train_step.main(["--config", "cls_tiny"]),
                  lambda: attribute_streaming.main(["--points", "100"]),

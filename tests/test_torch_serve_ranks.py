@@ -113,9 +113,6 @@ def test_parallel_refusals():
     with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2 -m "
                                            "pointwise_torch.infer"):
         infer.main(ARGV + ["--sp", "2"], requests=["quit"], emit=print)
-    with pytest.raises(ValueError, match="layered"):
-        infer.main(["--config", "seg_tiny_stream", "--device", "cpu",
-                    "--no-layered", "--dp"])
 
 
 def test_engine_failure_on_one_rank_ends_every_rank(tmp_path):

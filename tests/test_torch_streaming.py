@@ -81,22 +81,6 @@ def test_layered_matches_direct_and_jax_engine(setup):
     np.testing.assert_allclose(streamed, want, rtol=2e-4, atol=2e-4)
 
 
-def test_plain_stream_apply_matches_direct(setup):
-    _, tm = setup
-    xyz, rgb, _ = synthetic.segmentation_scene(5, num_objects=2,
-                                               points_per_obj=128)
-
-    def apply_fn(pts, fts, mask):
-        with torch.no_grad():
-            return tm(pts, fts, mask)
-
-    streamed = streaming.stream_apply(
-        apply_fn, xyz, rgb, halo=sum(RADII), tile_size=2.0, out_dim=5,
-        buckets=(256, 512, 1024), tile_batch=2, device="cpu")
-    np.testing.assert_allclose(streamed, _direct(tm, xyz, rgb),
-                               rtol=2e-4, atol=2e-4)
-
-
 def _coalesce_unguarded(groups):
     """The coalescing loop as it stood in the JAX engine (no guard)."""
     cost = streaming._sched_cost
