@@ -31,14 +31,16 @@ Phases, each printing one JSON line:
            phase's inputs (gradient g from a numpy seed), dense and CSR
            walks, f32 and bf16; two launches give identical bits and the
            two walks give identical bits; loss.backward() through
-           pointwise_conv on CUDA tensors launches each gradient's walk
-           (dw_*, dx_*) and product (dw_product, dx_product); dW and
+           pointwise_conv on CUDA tensors launches dX's walk (dx_*) and
+           product (dx_product) and dW's product (dw_product) over the
+           forward's kept means, no dW walk (dw_* 0); dW and
            dX with the external counts of the parity phase vs their plain
            versions, bits identical run to run;
   train    the train CLI's function in-process at full width, 22 steps
            each: s3dis_synthetic_local (CSR walk) and modelnet40_synthetic
            (dense walk), checkpoints in a temp dir; finite loss, grad norm
-           > 0, changed weights, the dw_*/dx_* launches of the walk (counts
+           > 0, changed weights, the dx_* and dw_product launches (no
+           dw_* walk: dW reads the forward's kept means; counts
            zeroed just before each run, read just after); steps 3-20 run
            back to back with one sync at each end of the window (ms/step,
            trained points/s, as the JAX bench times steps), steps 21-22
@@ -91,8 +93,11 @@ Phases, each printing one JSON line:
            --sp 2 (gather), 3 of Trainer(mesh, space_axis="space") with
            impl="spatial:space:ring", and 3 of a ring classifier at
            modelnet40_synthetic (32 x 1024: the counts and partials take
-           the dense walk), and 3 of --sp 2 --norm batch (gather, moments
-           reduced over both ranks); each run's first loss against the
+           the dense walk), 3 of the segmentation ring at 2 x 8192 (each
+           rank's slab of 4,096 candidates takes the CSR walk, so do its
+           partials and dW's and dX's walks in the backward), and 3 of
+           --sp 2 --norm batch (gather, moments reduced over both ranks);
+           each run's first loss against the
            single-device trainer's on the same batch (2e-3, the JAX
            package's bf16 SPMD pin), grad norm > 0, its launches (counts
            zeroed just before, read just after, summed over the ranks) and
@@ -168,7 +173,8 @@ Phases, each printing one JSON line:
            same rows at ShapeNetPart's widest-radius layer (tagged
            ``path``), outside the kernels line.
 After each phase a ``clock`` line gives its wall seconds.  Then the
-``kernels`` line (thirteen kernels), the nvidia-smi line and, last, the
+``kernels`` line (thirteen kernels; dW's two walks run only in the ring,
+so their launches are the ring's), the nvidia-smi line and, last, the
 result line.
 Any failure raises: the script exits non-zero and prints no result.  It
 imports nothing of JAX or of the JAX package.  The reader of the JAX
@@ -368,7 +374,7 @@ def phase_grad(dev, sizes=(4096, 8192), batch=4):
 
     from pointwise_torch.kernels import pointwise_conv_cuda as tk
     from pointwise_torch.ops import pointwise_conv
-    from pointwise_torch.ops.pointwise_conv import conv_layout
+    from pointwise_torch.ops.pointwise_conv import DW_XBAR, conv_layout
 
     cases = []
     for p in sizes:
@@ -413,7 +419,8 @@ def phase_grad(dev, sizes=(4096, 8192), batch=4):
                 if not same:
                     emit({"phase": "grad", "failed": cases[-1]})
                     raise AssertionError(f"dense != CSR bits: {cases[-1]}")
-    # the backward of the public op runs the kernels
+    # the backward of the public op runs the kernels: dW's product over the
+    # forward's kept means, dX's walk and product
     inp = parity_inputs(dev, batch, 4096, 124, 124, 0.375, seed=7)
     tk.reset_launches()
     for csr in (False, True):
@@ -424,13 +431,14 @@ def phase_grad(dev, sizes=(4096, 8192), batch=4):
         (y.float() ** 2).sum().backward()
     torch.cuda.synchronize()
     launches = dict(tk.LAUNCHES)
-    if any(launches[k] != 1 for k in ("dw_dense", "dw_csr", "dx_dense",
-                                      "dx_csr")) \
-            or launches["dw_product"] != 2 or launches["dx_product"] != 2:
+    if any(launches[k] != 1 for k in ("dx_dense", "dx_csr")) \
+            or launches["dw_dense"] or launches["dw_csr"] \
+            or launches["dw_product"] != 2 or launches["dx_product"] != 2 \
+            or DW_XBAR != {"kept": 2, "walked": 0}:
         raise AssertionError(f"backward did not launch the kernels: "
-                             f"{launches}")
+                             f"{launches}, {DW_XBAR}")
     emit({"phase": "grad", "ok": True, "cases": cases,
-          "backward_launches": launches})
+          "backward_launches": launches, "dw_xbar": dict(DW_XBAR)})
 
 
 def phase_ext(dev, sizes=(4096, 8192), batch=4, radius=0.375):
@@ -513,8 +521,10 @@ class ConvRecorder:
     builds its own model): keeps, per (kernel family and walk, layer), the
     inputs of the largest call, so the times phase runs the kernels at the
     shapes the main path gave them, and counts what the backward of each
-    call launches.  A conv's layer is told by its radius (``radii``);
-    ``prefix`` is the family its calls are filed under ("fwd", "dw")."""
+    call launches: dW's product (``dw_product_<walk>``; dW reads the
+    forward's kept means, no walk) and dX's walk (``dx_<walk>``).  A
+    conv's layer is told by its radius (``radii``); ``prefix`` is the
+    family its calls are filed under ("fwd", "dw")."""
 
     def __init__(self, radii, prefix="fwd"):
         import torch
@@ -534,7 +544,7 @@ class ConvRecorder:
             walk = "csr" if csr_walk(points.shape[1]) else "dense"
             if torch.is_grad_enabled():
                 # what the backward of this call launches
-                self.backward_calls[(f"dw_{walk}", layer)] += int(
+                self.backward_calls[(f"dw_product_{walk}", layer)] += int(
                     mod.kernel.requires_grad)
                 self.backward_calls[(f"dx_{walk}", layer)] += int(
                     x.requires_grad)
@@ -706,7 +716,8 @@ def resumed_bits_equal(dev, argv, steps, trainer, workdir):
 def phase_train(dev, workdir, steps=TRAIN_STEPS):
     """Both configurations through the train CLI's function (timed_train);
     returns ({config: summary}, {(kernel_walk, layer): recorded conv call},
-    {(kernel_walk, layer): dW / dX launches per training step},
+    {(kernel_walk, layer): dW product / dX walk launches per training
+    step},
     {config: checkpoint directory})."""
     import torch
 
@@ -740,17 +751,17 @@ def phase_train(dev, workdir, steps=TRAIN_STEPS):
                    **timing)
         emit({"phase": "train", **rec})
         finite = all(math.isfinite(m["loss"]) for m in metrics)
-        need = [f"dw_{walk}", f"dx_{walk}"]
+        dw, dx = f"dw_product_{walk}", f"dx_{walk}"
         per_layer = {k: sum(v for (n, _), v in
                             recorder.backward_calls.items() if n == k)
-                     for k in need}
+                     for k in (dw, dx)}
         if not (finite and rec["grad_norm_min"] > 0 and changed and repeat
                 and len(metrics) == steps
-                and all(launches[k] > 0 for k in need)
-                and all(per_layer[k] == launches[k] for k in need)
-                # one product per walk
-                and launches["dw_product"] == launches[need[0]]
-                and launches["dx_product"] == launches[need[1]]):
+                and launches[dx] > 0 and per_layer[dx] == launches[dx]
+                and launches["dx_product"] == launches[dx]
+                # dW: the product over the forward's means, no walk
+                and per_layer[dw] == launches["dw_product"] > 0
+                and launches[f"dw_{walk}"] == 0):
             raise AssertionError(f"training failed: {rec}, hooks saw "
                                  f"{per_layer}")
         summaries[config] = rec
@@ -796,7 +807,7 @@ def phase_partseg(dev, workdir, steps=PARTSEG_STEPS):
     repeat = resumed_bits_equal(dev, ["--config", config], steps, trainer,
                                 os.path.join(workdir, f"{config}_2"))
     per_layer = {k: sum(v for (n, _), v in recorder.backward_calls.items()
-                        if n == k) for k in ("dw_dense", "dx_dense")}
+                        if n == k) for k in ("dw_product_dense", "dx_dense")}
     rec = dict(config=config, walk="dense", batch=cfg.batch_size,
                points=cfg.num_points, parts=data.num_parts,
                blocks=len(cfg.channels), launches=launches,
@@ -813,8 +824,10 @@ def phase_partseg(dev, workdir, steps=PARTSEG_STEPS):
             and launches.get("fwd_dense") == fwd
             and launches.get("fwd_product") == fwd
             and "fwd_csr" not in launches
-            and all(launches.get(k) == per_layer[k] > 0 for k in per_layer)
-            and launches.get("dw_product") == per_layer["dw_dense"]
+            and "dw_dense" not in launches    # dW reads the forward's means
+            and launches.get("dx_dense") == per_layer["dx_dense"] > 0
+            and launches.get("dw_product") == per_layer["dw_product_dense"]
+            > 0
             and launches.get("dx_product") == per_layer["dx_dense"]):
         raise AssertionError(f"part segmentation training failed: {rec}, "
                              f"hooks saw {per_layer}")
@@ -880,8 +893,9 @@ def phase_batchnorm(dev, workdir, steps=TRAIN_STEPS):
     emit({"phase": "batchnorm", **rec})
     if not (moved and repeat and rec["grad_norm_min"] > 0
             and all(math.isfinite(m["loss"]) for m in metrics)
-            and all(launches.get(f"{k}_{walk}", 0) > 0
-                    for k in ("fwd", "dw", "dx"))):
+            and all(launches.get(f"{k}_{walk}", 0) > 0 for k in ("fwd", "dx"))
+            and launches.get("dw_product", 0) > 0
+            and f"dw_{walk}" not in launches):
         raise AssertionError(f"BatchNorm training failed: {rec}")
     t0 = time.perf_counter()
     m = evaluate.main(argv + ["--checkpoint-dir", ck, "--device", dev.type])
@@ -946,8 +960,8 @@ def phase_remat(dev, runs=REMAT_RUNS, steps=REMAT_STEPS):
                 and rl.get("fwd_product", 0) - pl.get("fwd_product", 0)
                 == blocks * steps
                 and all(rl.get(k) == pl.get(k) > 0 for k in (
-                    f"dw_{walk}", f"dx_{walk}", "dw_product",
-                    "dx_product"))):
+                    f"dx_{walk}", "dw_product", "dx_product"))
+                and f"dw_{walk}" not in rl and f"dw_{walk}" not in pl):
             raise AssertionError(f"remat != no remat: {rec}")
         summaries.append(rec)
     return summaries
@@ -1078,13 +1092,16 @@ def phase_exact(dev, n_points=20_000):
 def spatial_configs():
     """The spatial phase's configurations: the training cells at dropout 0
     (and segmentation jitter 0, ``jitter=0.0`` of the CLI's function), so
-    that a sharded step computes the unsharded one's function."""
+    that a sharded step computes the unsharded one's function, and the
+    segmenter again at 2 x 8192 points, whose 4,096-candidate slabs on 2
+    ranks take the CSR walk (``csr_walk``)."""
     from pointwise_torch.train import get_config
 
-    return (dataclasses.replace(get_config("s3dis_synthetic_local"),
-                                dropout=0.0),
-            dataclasses.replace(get_config("modelnet40_synthetic"),
-                                dropout=0.0))
+    seg = dataclasses.replace(get_config("s3dis_synthetic_local"),
+                              dropout=0.0)
+    return (seg, dataclasses.replace(get_config("modelnet40_synthetic"),
+                                     dropout=0.0),
+            dataclasses.replace(seg, num_points=8192, batch_size=2))
 
 
 def spatial_batches(cfg, n):
@@ -1127,7 +1144,7 @@ def spatial_worker(mesh, steps, configs):
     from pointwise_torch.utils.runtime import StepWindow, sync
 
     dev = mesh.device
-    seg, cls = configs
+    seg, cls, seg_csr = configs
     if dev.type == "cuda":
         tk.build_libraries()
     out = {}
@@ -1159,7 +1176,7 @@ def spatial_worker(mesh, steps, configs):
                                            step_seed(cfg.seed, step)))
         return trainer
 
-    def seg_ring(remat):
+    def seg_ring(remat, seg=seg):
         return PointwiseSegmenter(
             num_classes=seg.num_classes, in_features=seg.in_features,
             channels=seg.channels, radii=seg.radii, head_dims=seg.head_dims,
@@ -1179,6 +1196,8 @@ def spatial_worker(mesh, steps, configs):
     run("seg_ring_remat", lambda on_step: trained(seg, seg_ring(True),
                                                   seg_spmd_loss_fn(),
                                                   on_step))
+    run("seg_ring_csr", lambda on_step: trained(
+        seg_csr, seg_ring(False, seg_csr), seg_spmd_loss_fn(), on_step))
     run("cls_ring", lambda on_step: trained(cls, PointwiseClassifier(
         num_classes=cls.num_classes, channels=cls.channels, radii=cls.radii,
         head_dims=cls.head_dims, dropout_rate=0.0,
@@ -1282,12 +1301,13 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
     from pointwise_torch.train import cli
     from pointwise_torch.utils.runtime import sync
 
-    seg, cls = configs or spatial_configs()
+    seg, cls, seg_csr = configs or spatial_configs()
     single, calls = {}, {}
     seg_step = functools.partial(cli.train_segmentation, jitter=0.0)
     for key, cfg, train in (("seg", seg, seg_step),
                             ("seg_bn", dataclasses.replace(seg, norm="batch"),
                              seg_step),
+                            ("seg_csr", seg_csr, seg_step),
                             ("cls", cls, cli.train_classification)):
         first = []
         recorder = ConvRecorder(cfg.radii, prefix="ring")
@@ -1298,19 +1318,20 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
                   lambda step, m: first.append(float(m["loss"])))
         recorder.remove()
         single[key] = first[0]
-        if key != "seg_bn":
+        if key in ("seg", "cls"):
             calls[cfg.name] = recorder.calls
     sync(dev)
     t0 = time.perf_counter()
     res = launch.spawn(spatial_worker, 2, os.path.join(workdir, "ranks"),
                        data=1, space=2, backend="gloo",
                        device="cuda:0" if dev.type == "cuda" else "cpu",
-                       kwargs=dict(steps=steps, configs=(seg, cls)),
+                       kwargs=dict(steps=steps, configs=(seg, cls, seg_csr)),
                        timeout=900, comm_timeout=300, threads=4)
     wall = time.perf_counter() - t0
     launches = collections.Counter()
     runs_by_name = {}
-    gather = ("fwd_csr", "dw_csr", "dx_csr", "dw_product", "dx_product")
+    # the gather's conv is the Function: dW reads the forward's means
+    gather = ("fwd_csr", "dx_csr", "dw_product", "dx_product")
     for name, key, cfg, need in (
             ("gather", "seg", seg, gather),
             ("gather_bn", "seg_bn", dataclasses.replace(seg, norm="batch"),
@@ -1321,6 +1342,9 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
             ("seg_ring_remat", "seg", seg, ("counts_csr", "fwd_ext_dense",
                                             "dw_dense", "dx_dense",
                                             "dw_product", "dx_product")),
+            ("seg_ring_csr", "seg_csr", seg_csr, (
+                "counts_csr", "fwd_ext_csr", "dw_csr", "dx_csr",
+                "dw_product", "dx_product")),
             ("cls_ring", "cls", cls, ("counts_dense", "fwd_ext_dense",
                                       "dw_dense", "dx_dense", "dw_product",
                                       "dx_product"))):
@@ -1345,6 +1369,7 @@ def phase_spatial_ranks(dev, workdir, configs=None, steps=SPATIAL_STEPS):
         same = all(r["metrics"] == runs[0]["metrics"] for r in runs)
         if not (rel <= SPMD_LOSS_RTOL and rec["grad_norm_min"] > 0 and same
                 and all(got[k] > 0 for k in need)
+                and not (name.startswith("gather") and got["dw_csr"])
                 and all(math.isfinite(m["loss"]) for m in runs[0]["metrics"])):
             raise AssertionError(f"spatial run {name} failed: {rec}")
         launches.update(got)
@@ -1851,7 +1876,7 @@ def phase_times(calls, per_step, **tag):
             for kname, fn, plain, a, n, lib, walk_name in (
                     ("dw_product", tk.conv_dw_product,
                      tk.conv_dw_product_plain, (xbar, g2), centers_n,
-                     library_dw_product, f"dw_{walk}"),
+                     library_dw_product, f"dw_product_{walk}"),
                     ("dx_product", tk.conv_dx_product,
                      tk.conv_dx_product_plain, (z, w), cands_n,
                      library_dx_product, f"dx_{walk}")):
@@ -2025,11 +2050,10 @@ def main():
         phase("batchnorm", phase_batchnorm, dev, workdir)
     phase("remat", phase_remat, dev)
     # each kernel's launches come from its own path: the forward's from the
-    # serve phase, dW's and dX's from the training run of their walk
+    # serve phase, dX's from the training run of its walk
     for rec in trained.values():
-        for k in ("dw", "dx"):
-            name = f"{k}_{rec['walk']}"
-            launches[name] = rec["launches"][name]
+        name = f"dx_{rec['walk']}"
+        launches[name] = rec["launches"][name]
     for name in ("dw_product", "dx_product"):    # both training runs
         launches[name] = sum(rec["launches"][name] for rec in trained.values())
     phase("exact", phase_exact, dev)
@@ -2041,7 +2065,10 @@ def main():
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
         ring_launches, ring_calls = phase("spatial", phase_spatial_ranks,
                                           dev, workdir)
-    for k in ("counts_dense", "counts_csr", "fwd_ext_dense"):
+    # the Function's dW reads the forward's kept means: only the ring's
+    # partials walk for dW, dense and CSR
+    for k in ("counts_dense", "counts_csr", "fwd_ext_dense", "dw_dense",
+              "dw_csr"):
         launches[k] = ring_launches[k]
     with tempfile.TemporaryDirectory(dir=tk._BUILD_DIR) as workdir:
         phase("serve_parallel", phase_serve_parallel, dev, workdir, smi,

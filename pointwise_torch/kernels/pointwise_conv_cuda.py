@@ -146,6 +146,9 @@ LAUNCHES = {"fwd_dense": 0, "fwd_csr": 0, "fwd_product": 0,
 HOST_SYNCS = {"tile_boxes": 0, "tile_lists": 0, "engine_put": 0,
               "engine_resident": 0, "engine_fetch": 0, "subblock_cap": 0,
               "check_coordinates": 0}
+# The counters ``reset_launches`` zeroes: the two above, and those that a
+# layer above keeps beside its own sites (the op layer's ``DW_XBAR``).
+COUNTERS = [LAUNCHES, HOST_SYNCS]
 # Library loads in this process (a build from source, or loading a library
 # built earlier from the same source), the seconds they took, and the
 # compiler's resource report (registers, shared memory, spills).  Every
@@ -172,8 +175,8 @@ def sm_count(dev) -> int:
 
 
 def reset_launches() -> None:
-    """Zero ``LAUNCHES`` and ``HOST_SYNCS``."""
-    for counter in (LAUNCHES, HOST_SYNCS):
+    """Zero every counter of ``COUNTERS``."""
+    for counter in COUNTERS:
         for k in counter:
             counter[k] = 0
 

@@ -170,7 +170,10 @@ class PointwiseConvBlock(nn.Module):
     JAX nets): the conv kernels (and under a mesh the block's collectives)
     run again inside the backward, in the same order on every rank.  The
     BatchNorm running averages move once per forward, outside the
-    recomputed part, as flax drops the recompute's state updates."""
+    recomputed part, as flax drops the recompute's state updates.  The
+    conv's cell means, which ``PointwiseConvFunction`` keeps for dW, are
+    kept only by the recomputed forward, for this block's backward alone,
+    so remat keeps its memory bound and dW still walks nothing."""
 
     def __init__(self, in_features: int, features: int, radius: float, *,
                  impl: str = "auto", norm: str = "layer",

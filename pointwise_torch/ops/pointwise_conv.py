@@ -29,7 +29,8 @@ candidates: its outputs over disjoint candidate subsets sum to the full
 convolution (the ring strategy).
 
 Gradient: ``PointwiseConvFunction``, a ``torch.autograd.Function`` whose
-forward is ``conv_fwd`` and whose backward is ``conv_dw`` (weights),
+forward is ``conv_fwd``'s means walk and product and whose backward is
+``conv_dw_product`` over the forward's own cell means (weights),
 ``conv_dx`` (features, skipped when they need no gradient) and ``g.sum``
 (bias), on either device.  It rounds where the TPU op's ``_pw_bwd`` does:
 it takes the f32 weights and casts them to the matmul type inside, so dW is
@@ -43,19 +44,30 @@ from __future__ import annotations
 import torch
 
 from pointwise_torch.kernels.pointwise_conv_cuda import (
+    COUNTERS,
     N_CELLS,
     SENTINEL,
     TILE,
     _SENTINEL_CUT,
     conv_counts,
     conv_dw,
+    conv_dw_product,
     conv_dx,
-    conv_fwd,
+    conv_fwd_means,
+    conv_fwd_product,
     count_sync,
     round_up,
     tile_adjacency,
 )
 from pointwise_torch.ops import reference as _ref
+
+# Where the weight gradients took their cell means (``conv_backward``):
+# ``kept`` those that read the forward's own xbar (``PointwiseConvFunction``,
+# no walk), ``walked`` those that walked the neighbourhood again
+# (``conv_dw``: the ring strategy's partials).  Zeroed by the kernels'
+# ``reset_launches`` with the launch counts; not a launch count itself.
+DW_XBAR = {"kept": 0, "walked": 0}
+COUNTERS.append(DW_XBAR)
 
 # The candidate walk switches to the bbox tile lists once it spans at least
 # this many 512-point tiles (the JAX op's rule, ops/pointwise_conv.py:429-430
@@ -162,14 +174,24 @@ def conv_layout(points, features, weights, bias=None, *, radius,
 
 
 def conv_backward(g, feats, w, ctr, pts, cnt, radius, tile_ptr, tile_idx,
-                  need_feats: bool, need_w: bool):
+                  need_feats: bool, need_w: bool, xbar=None):
     """The gradients of one ``conv_fwd`` call, as the TPU op's ``_pw_bwd``
     forms them: (dX (B, Mp, Cin) in the features' matmul type or None,
     dW (27, Cin, Cout) f32 or None).  ``g`` (B, Ncp, Cout) f32; ``cnt`` the
-    counts the forward divided by; the rest as the forward took them."""
+    counts the forward divided by; ``xbar`` the forward's cell means
+    (``conv_fwd_means``' view) or None; the rest as the forward took them.
+    dW is ``conv_dw_product`` over ``xbar`` when it is given, else
+    ``conv_dw``, which walks the neighbourhood again for the same means
+    (``DW_XBAR`` counts which)."""
     d_feats = d_w = None
     if need_w:
-        d_w = conv_dw(ctr, pts, feats, g, cnt, radius, tile_ptr, tile_idx)
+        if xbar is None:
+            DW_XBAR["walked"] += 1
+            d_w = conv_dw(ctr, pts, feats, g, cnt, radius, tile_ptr,
+                          tile_idx)
+        else:
+            DW_XBAR["kept"] += 1
+            d_w = conv_dw_product(xbar, g.view(-1, g.shape[-1]))
     if need_feats:
         ptr_t = idx_t = None
         if tile_ptr is not None:         # candidate tile -> center tiles
@@ -183,6 +205,15 @@ class PointwiseConvFunction(torch.autograd.Function):
     """conv_fwd with the TPU op's gradient (its ``_pw_bwd``, and with
     external counts its ``_pw_ext_bwd``).
 
+    When the weights' gradient will be taken (``needs_input_grad[1]``) the
+    forward keeps its cell means ``xbar`` (B*Ncp x 27*Cin in the matmul
+    type) for the backward, whose dW is then ``conv_dw_product`` alone: dW's
+    own walk would give the same means bit for bit.  Under ``no_grad``,
+    ``inference_mode`` or with frozen weights nothing more is kept.  Under
+    remat (non-reentrant ``checkpoint``) the first pass's saved tensors are
+    dropped by checkpoint's hooks and the forward recomputed in the
+    backward keeps ``xbar`` for its own block's backward only.
+
     apply(feats, weights, bias, ctr, pts, radius, tile_ptr, tile_idx
     [, cnt_in]) -> (y, cnt): ``feats`` padded in the matmul type,
     ``weights`` (27, Cin, Cout) in any float type (cast to the matmul type
@@ -195,23 +226,26 @@ class PointwiseConvFunction(torch.autograd.Function):
     def forward(ctx, feats, weights, bias, ctr, pts, radius, tile_ptr,
                 tile_idx, cnt_in=None):
         w = weights.to(feats.dtype).contiguous()
-        y, cnt = conv_fwd(ctr, pts, feats, w, bias, radius, tile_ptr,
-                          tile_idx, cnt_in)
+        xbar, cnt = conv_fwd_means(ctr, pts, feats, radius, tile_ptr,
+                                   tile_idx, cnt_in)
+        y = conv_fwd_product(xbar, w, bias).view(*ctr.shape[:2], w.shape[2])
         ctx.mark_non_differentiable(cnt)
+        kept = (xbar,) if ctx.needs_input_grad[1] else ()
         ctx.save_for_backward(feats, w, ctr, pts,
                               cnt if cnt_in is None else cnt_in, tile_ptr,
-                              tile_idx)
+                              tile_idx, *kept)
         ctx.radius = radius
         ctx.weights_dtype = weights.dtype
         return y, cnt
 
     @staticmethod
     def backward(ctx, g, _g_cnt):
-        feats, w, ctr, pts, div, tile_ptr, tile_idx = ctx.saved_tensors
+        feats, w, ctr, pts, div, tile_ptr, tile_idx, *kept = \
+            ctx.saved_tensors
         g = g.to(torch.float32).contiguous()
         d_feats, d_w = conv_backward(
             g, feats, w, ctr, pts, div, ctx.radius, tile_ptr, tile_idx,
-            ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+            ctx.needs_input_grad[0], ctx.needs_input_grad[1], *kept)
         if d_w is not None:
             d_w = d_w.to(ctx.weights_dtype)
         d_bias = g.sum(dim=(0, 1)) if ctx.needs_input_grad[2] else None

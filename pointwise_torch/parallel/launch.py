@@ -168,17 +168,21 @@ class KernelProbe:
         import importlib
 
         self.max_rows = 0
-        self._mods = [importlib.import_module(m) for m in (
-            "pointwise_torch.kernels.pointwise_conv_cuda",
-            "pointwise_torch.ops.pointwise_conv")]
+        rows = {"conv_fwd": lambda a, out: a[2],
+                "conv_fwd_means": lambda a, out: a[2],
+                "conv_dw": lambda a, out: a[2],
+                "conv_dx": lambda a, out: out}
         self._saved = []
-        for mod in self._mods:
-            for name, rows_of in (("conv_fwd", lambda a, out: a[2]),
-                                  ("conv_dw", lambda a, out: a[2]),
-                                  ("conv_dx", lambda a, out: out)):
+        for mod, names in (
+                ("pointwise_torch.kernels.pointwise_conv_cuda",
+                 ("conv_fwd", "conv_dw", "conv_dx")),
+                ("pointwise_torch.ops.pointwise_conv",
+                 ("conv_fwd_means", "conv_dw", "conv_dx"))):
+            mod = importlib.import_module(mod)
+            for name in names:
                 orig = getattr(mod, name)
                 self._saved.append((mod, name, orig))
-                setattr(mod, name, self._wrap(orig, rows_of))
+                setattr(mod, name, self._wrap(orig, rows[name]))
 
     def _wrap(self, orig, rows_of):
         def probe(*args, **kw):

@@ -160,10 +160,44 @@ def test_launch_counters_and_gradient(cuda):
         (y * y).sum().backward()
         assert f.grad.abs().max() > 0 and w.grad.abs().max() > 0
     torch.cuda.synchronize()
-    # each gradient: one walk of its mode and one product
+    # dX: one walk of its mode and one product; dW: the product alone, over
+    # the forward's kept means
     assert {k: v for k, v in tk.LAUNCHES.items() if k[:2] in ("dw", "dx")} \
-        == {"dw_dense": 1, "dw_csr": 1, "dw_product": 2, "dx_dense": 1,
+        == {"dw_dense": 0, "dw_csr": 0, "dw_product": 2, "dx_dense": 1,
             "dx_csr": 1, "dx_product": 2}
+    assert op_module.DW_XBAR == {"kept": 2, "walked": 0}
+
+
+def test_function_dw_reads_the_forwards_means(cuda):
+    # the shapes' width (Cin 124, bf16, 4 x 2048): the Function's dW, the
+    # product over the forward's kept means, equals dW's own walk and
+    # product bit for bit, and its backward launches no dW walk
+    p = _scene_inputs(cuda, b=4, n=2048, nc=2048, cin=124)
+    rng = np.random.RandomState(5)
+    runs = {}
+    tk.reset_launches()
+    for csr in (False, True):
+        kw, _ = conv_layout(p["points"], p["features"], p["weights"],
+                            p["bias"], radius=0.2, mask=p["mask"],
+                            precision="bfloat16", csr=csr)
+        w = p["weights"].clone().requires_grad_(True)
+        y, cnt = op_module.PointwiseConvFunction.apply(
+            kw["feats"], w, kw["bias"], kw["ctr"], kw["pts"], kw["radius"],
+            kw["tile_ptr"], kw["tile_idx"])
+        g = torch.from_numpy(rng.standard_normal(tuple(y.shape)).astype(
+            np.float32)).to(cuda)
+        y.backward(g)
+        runs[csr] = (kw, w.grad, g, cnt)
+    torch.cuda.synchronize()
+    assert (tk.LAUNCHES["dw_dense"], tk.LAUNCHES["dw_csr"],
+            tk.LAUNCHES["dw_product"]) == (0, 0, 2)
+    assert op_module.DW_XBAR == {"kept": 2, "walked": 0}
+    for csr, (kw, dw, g, cnt) in runs.items():
+        want = tk.conv_dw(kw["ctr"], kw["pts"], kw["feats"], g, cnt,
+                          kw["radius"], kw["tile_ptr"], kw["tile_idx"])
+        assert dw.abs().max() > 0
+        assert torch.equal(dw, want), csr
+    assert (tk.LAUNCHES["dw_dense"], tk.LAUNCHES["dw_csr"]) == (1, 1)
 
 
 @pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])

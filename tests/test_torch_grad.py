@@ -28,8 +28,11 @@ import torch
 
 from pointwise_tpu.ops import pointwise_conv as jax_conv
 from pointwise_torch.kernels import pointwise_conv_cuda as tk
-from pointwise_torch.ops import pointwise_conv
-from pointwise_torch.ops.pointwise_conv import conv_layout
+from pointwise_torch.models import PointwiseSegmenter
+from pointwise_torch.ops import pointwise_conv, pointwise_conv_counts
+from pointwise_torch.ops.pointwise_conv import (DW_XBAR,
+                                                PointwiseConvFunction,
+                                                conv_backward, conv_layout)
 
 CASES = {
     "masked": dict(masked=True),
@@ -194,3 +197,151 @@ def test_grad_wrappers_check_inputs():
         ptr, idx = tk.tile_adjacency(kw["ctr"], kw["pts"], 0.5)
         tk.conv_dx(kw["ctr"], kw["pts"], g, cnt, kw["w"], 0.5,
                    torch.cat([ptr, ptr]), idx)
+
+
+@pytest.mark.parametrize("counts", ["own", "cnt_in"])
+@pytest.mark.parametrize("precision", ["float32", "bfloat16"])
+@pytest.mark.parametrize("csr", [False, True], ids=["dense", "csr"])
+def test_weight_grad_reads_the_forwards_means(csr, precision, counts):
+    # dW is the product over the forward's kept cell means, no second walk:
+    # the same bits as dW's own walk, and dX and dbias as before
+    p, gdir = make_problem(16, n=150, nc=70, masked=True)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    kw, _ = conv_layout(t["points"], t["features"], t["weights"], t["bias"],
+                        radius=0.4, mask=t["mask"], centers=t["centers"],
+                        center_mask=t["center_mask"], precision=precision,
+                        csr=csr)
+    walk = (kw["ctr"], kw["pts"])
+    lists = (kw["tile_ptr"], kw["tile_idx"])
+    cnt_in = None
+    if counts == "cnt_in":
+        cnt_in = 2.0 * tk.conv_counts(*walk, 0.4, *lists) + 1.0
+    feats = kw["feats"].clone().requires_grad_(True)
+    weights = t["weights"].clone().requires_grad_(True)
+    bias = kw["bias"].clone().requires_grad_(True)
+    tk.reset_launches()
+    y, cnt = PointwiseConvFunction.apply(feats, weights, bias, *walk, 0.4,
+                                         *lists, cnt_in)
+    g = torch.from_numpy(np.random.RandomState(17).standard_normal(
+        tuple(y.shape)).astype(np.float32))
+    y.backward(g)
+    assert DW_XBAR == {"kept": 1, "walked": 0}
+    div = cnt if cnt_in is None else cnt_in
+    want_w = tk.conv_dw_plain(*walk, kw["feats"], g, div, 0.4, *lists)
+    assert torch.equal(weights.grad, want_w)
+    assert weights.grad.abs().max() > 0
+    d_feats, d_w = conv_backward(g, kw["feats"], kw["w"], *walk, div, 0.4,
+                                 *lists, True, True, xbar=None)
+    assert DW_XBAR == {"kept": 1, "walked": 1}
+    assert torch.equal(weights.grad, d_w)
+    assert torch.equal(feats.grad, d_feats)
+    assert torch.equal(bias.grad, g.sum(dim=(0, 1)))
+
+
+def _xbar_shapes_packed(run):
+    """``run()`` under a pack hook: how many tensors it saved for the
+    backward, and how many of them had the cell means' (rows, 27 x Cin)
+    shape (make_problem(18)'s 2 x 128 padded centers, Cin 5)."""
+    packed = []
+
+    def pack(x):
+        packed.append(tuple(x.shape))
+        return x
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda x: x):
+        run()
+    return len(packed), packed.count((2 * 128, 27 * 5))
+
+
+def _kept_means_case(case, monkeypatch):
+    """Run ``case``; returns what it checks beside ``DW_XBAR``."""
+    p, gdir = make_problem(18, n=100, masked=True)
+    t = {k: torch.from_numpy(v) for k, v in p.items()}
+    gd = torch.from_numpy(gdir)
+    conv = functools.partial(pointwise_conv, t["points"], radius=0.4,
+                             mask=t["mask"])
+    if case in ("weights_grad", "frozen_weights"):
+        f = t["features"].clone().requires_grad_(True)
+        w = t["weights"].clone().requires_grad_(case == "weights_grad")
+
+        def step():
+            (conv(f, w, t["bias"]) * gd).sum().backward()
+
+        saved, xbars = _xbar_shapes_packed(step)
+        assert saved > 0 and f.grad.abs().max() > 0
+        return {"xbars": xbars}
+    if case in ("no_grad", "inference_mode"):
+        w = t["weights"].clone().requires_grad_(True)
+        mode = torch.no_grad if case == "no_grad" else torch.inference_mode
+
+        def serve():
+            with mode():
+                conv(t["features"], w, t["bias"])
+
+        return {"xbars": _xbar_shapes_packed(serve)[1]}
+    if case == "ring":
+        # the ring of one member: its partials walk again for dW
+        spatial = importlib.import_module("pointwise_torch.parallel.spatial")
+        monkeypatch.setattr(spatial.dist, "get_world_size",
+                            lambda group=None: 1)
+        w = t["weights"].clone().requires_grad_(True)
+        counts = pointwise_conv_counts(t["points"], radius=0.4,
+                                       mask=t["mask"])
+        y = spatial.RingConvFunction.apply(
+            t["features"], w, t["points"], t["mask"], counts, 0.4, "float32",
+            None)
+        (y * gd).sum().backward()
+        assert w.grad.abs().max() > 0
+        return {}
+    # remat: the forward recomputed in the backward keeps the means
+    b = make_problem(19, n=100, cin=6, masked=True)[0]
+    grads = {}
+    for remat in (False, True):
+        model = PointwiseSegmenter(
+            3, 6, channels=(8, 8), radii=(0.3, 0.6), head_dims=(8,),
+            dropout_rate=0.0, remat=remat, precision="float32",
+            generator=torch.Generator().manual_seed(0)).train()
+        tk.reset_launches()
+        logits = model(*(torch.from_numpy(b[k])
+                         for k in ("points", "features", "mask")))
+        (logits ** 2).sum().backward()
+        grads[remat] = [q.grad for q in model.parameters()]
+    for a, c in zip(grads[False], grads[True]):
+        assert torch.equal(a, c)
+    return {}
+
+
+KEPT_MEANS = {  # case: (its DW_XBAR, what else it checks)
+    "weights_grad": ({"kept": 1, "walked": 0}, {"xbars": 1}),
+    "frozen_weights": ({"kept": 0, "walked": 0}, {"xbars": 0}),
+    "no_grad": ({"kept": 0, "walked": 0}, {"xbars": 0}),
+    "inference_mode": ({"kept": 0, "walked": 0}, {"xbars": 0}),
+    "ring": ({"kept": 0, "walked": 1}, {}),
+    "remat": ({"kept": 2, "walked": 0}, {}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(KEPT_MEANS))
+def test_means_kept_only_for_the_weights_grad(case, monkeypatch):
+    # the forward keeps its cell means only when dW will be taken from them;
+    # the ring keeps walking; remat keeps the same bits without a walk
+    tk.reset_launches()
+    got = _kept_means_case(case, monkeypatch)
+    counter, want = KEPT_MEANS[case]
+    assert DW_XBAR == counter
+    assert got == want
+
+
+@pytest.mark.parametrize("case,share", [
+    ("weights_grad", 100.0), ("no_grad", None), ("ring", 0.0),
+    ("remat", 100.0)])
+def test_the_kept_share_reads_the_counter(case, share, monkeypatch):
+    # the benchmark's dw_xbar_kept.train reads the op layer's counter in
+    # the run's own process: the share of the weight gradients kept
+    from benchmark.metrics import reader
+
+    read = reader("dw_xbar_kept.train")
+    tk.reset_launches()
+    _kept_means_case(case, monkeypatch)
+    assert read({"kind": "train"}) == share
+    assert read({"kind": "serve"}) is None

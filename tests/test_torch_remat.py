@@ -100,16 +100,17 @@ def _model(net, remat, **kw):
 
 
 def _count_forwards(monkeypatch):
-    """The number of forward kernel calls (the op layer's ``conv_fwd``)."""
+    """The number of forward kernel calls (the op layer's means walk,
+    ``conv_fwd_means``)."""
     op = importlib.import_module("pointwise_torch.ops.pointwise_conv")
     calls = [0]
-    orig = op.conv_fwd
+    orig = op.conv_fwd_means
 
     def counting(*args, **kw):
         calls[0] += 1
         return orig(*args, **kw)
 
-    monkeypatch.setattr(op, "conv_fwd", counting)
+    monkeypatch.setattr(op, "conv_fwd_means", counting)
     return calls
 
 
