@@ -26,6 +26,7 @@ from typing import Iterator
 import numpy as np
 
 from pointwise_torch.data import synthetic
+from pointwise_torch.utils.runtime import span
 from pointwise_torch.utils.spatial import check_coordinates, morton_code
 
 
@@ -177,6 +178,7 @@ def predict_scene_voting(
     label: np.ndarray | None = None,
     rng: np.random.RandomState | None = None,
     feature_mode: str = "rgb_norm",
+    events: dict | None = None,
 ):
     """Full-scene inference with overlap voting (SURVEY.md section 3.3).
 
@@ -184,32 +186,46 @@ def predict_scene_voting(
     Votes = sum of logits per original point over all overlapping blocks;
     final label = argmax of votes.  Points never covered by any block get
     class 0 and are reported in `uncovered`.
+
+    Its three phases are spans (``runtime.span``): ``vote.crop`` (the
+    blocks), ``vote.forward`` (each ``predict_logits`` call, its fetch to
+    the host included) and ``vote.scatter`` (adding each block's logits
+    into the votes).  ``events``, when given, gains their seconds under
+    ``crop_s``, ``forward_s`` and ``scatter_s``, ``chunks`` (the blocks
+    ``room_blocks`` emitted) and ``pad_chunks`` (the rows repeated to fill
+    the last batch).
     """
-    blocks = room_blocks(
-        xyz, rgb, label if label is not None else np.zeros(len(xyz), np.int32),
-        num_points=num_points, block_size=block_size, stride=stride,
-        rng=rng or np.random.RandomState(0), cover_all=True,
-        feature_mode=feature_mode,
-    )
+    ev = {"crop_s": 0.0, "forward_s": 0.0, "scatter_s": 0.0}
+    with span("vote.crop", ev, "crop_s"):
+        blocks = room_blocks(
+            xyz, rgb,
+            label if label is not None else np.zeros(len(xyz), np.int32),
+            num_points=num_points, block_size=block_size, stride=stride,
+            rng=rng or np.random.RandomState(0), cover_all=True,
+            feature_mode=feature_mode,
+        )
     votes = np.zeros((len(xyz), num_classes), np.float32)
     covered = np.zeros(len(xyz), bool)
-    if blocks is not None:
-        nb = len(blocks["points"])
-        for s in range(0, nb, batch_size):
-            e = min(s + batch_size, nb)
-            pad = batch_size - (e - s)
-            feed = {
-                k: np.concatenate([v[s:e], np.repeat(v[e - 1 : e], pad, 0)])
-                if pad else v[s:e]
-                for k, v in blocks.items()
-            }
+    nb = 0 if blocks is None else len(blocks["points"])
+    for s in range(0, nb, batch_size):
+        e = min(s + batch_size, nb)
+        pad = batch_size - (e - s)
+        feed = {
+            k: np.concatenate([v[s:e], np.repeat(v[e - 1 : e], pad, 0)])
+            if pad else v[s:e]
+            for k, v in blocks.items()
+        }
+        with span("vote.forward", ev, "forward_s"):
             logits = np.asarray(
                 predict_logits(feed["points"], feed["features"], feed["mask"])
             )[: e - s]
+        with span("vote.scatter", ev, "scatter_s"):
             for bi in range(e - s):
                 idx = blocks["index"][s + bi]
                 np.add.at(votes, idx, logits[bi])
                 covered[idx] = True
+    if events is not None:
+        events.update(ev, chunks=nb, pad_chunks=-nb % batch_size)
     pred = votes.argmax(axis=1).astype(np.int32)
     return {"pred": pred, "votes": votes, "covered": covered}
 

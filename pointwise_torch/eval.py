@@ -148,6 +148,20 @@ def eval_segmentation_streaming(cfg, args, device, scenes):
                           len(scenes))
 
 
+def block_predictor(model, device):
+    """The ``predict_logits`` that ``s3dis.predict_scene_voting`` calls:
+    one batch of blocks (numpy points, features, mask) through ``model`` in
+    inference mode on ``device``, its logits fetched to the host as
+    numpy."""
+
+    def predict(points, features, mask):
+        with torch.inference_mode():
+            return model(_tensor(points, device), _tensor(features, device),
+                         _tensor(mask, device)).cpu().numpy()
+
+    return predict
+
+
 def eval_segmentation(cfg, args, device):
     if cfg.name.startswith("scenenn"):
         scenes = scenenn.load_scenes(cfg.data_dir or args.data_dir,
@@ -157,13 +171,7 @@ def eval_segmentation(cfg, args, device):
                                   seed=cfg.seed)
     if args.streaming:
         return eval_segmentation_streaming(cfg, args, device, scenes)
-    model = _segmenter(cfg, args, device)
-
-    def predict(points, features, mask):
-        with torch.inference_mode():
-            return model(_tensor(points, device), _tensor(features, device),
-                         _tensor(mask, device)).cpu().numpy()
-
+    predict = block_predictor(_segmenter(cfg, args, device), device)
     # voting density: denser than the training stride by default
     stride = args.stride if args.stride is not None else cfg.block_stride / 2
     if stride <= 0:

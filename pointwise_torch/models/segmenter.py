@@ -37,6 +37,10 @@ class PointwiseSegmenter(nn.Module):
     ``remat=True`` recomputes each trunk block's activations in the
     backward instead of keeping them (``PointwiseConvBlock``); the outputs,
     gradients and ``state_dict`` keys are those of ``remat=False``.
+
+    With the global context the pool and its broadcast beside the skips
+    are the span ``seg.context`` (``runtime.span``, a range only under a
+    profiler); the locality-only forward opens none.
     """
 
     def __init__(self, num_classes: int, in_features: int, *,
@@ -72,9 +76,10 @@ class PointwiseSegmenter(nn.Module):
             skips.append(x)
         h = torch.cat(skips, dim=-1)
         if self.use_global_context:
-            g = masked_pool(x, mask, self.context)
-            h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)],
-                          dim=-1)
+            with span("seg.context"):
+                g = masked_pool(x, mask, self.context)
+                h = torch.cat([h, g[:, None, :].expand(-1, h.shape[1], -1)],
+                              dim=-1)
         return self._head(h, mask)
 
     def _head(self, h, mask):
