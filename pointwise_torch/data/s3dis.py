@@ -20,11 +20,13 @@ block-centered xyz.
 from __future__ import annotations
 
 import glob
+import math
 import os
 from typing import Iterator
 
 import numpy as np
 
+from pointwise_torch import native
 from pointwise_torch.data import synthetic
 from pointwise_torch.utils.runtime import span
 from pointwise_torch.utils.spatial import check_coordinates, morton_code
@@ -71,18 +73,27 @@ def room_blocks(
       mask     (B, num_points)     1 = real point
       index    (B, num_points)     index into the room's point array (-1 pad)
     """
+    return _crop(xyz, rgb, label, num_points=num_points,
+                 block_size=block_size, stride=stride, min_points=min_points,
+                 rng=rng, cover_all=cover_all, feature_mode=feature_mode)[0]
+
+
+def _crop(xyz, rgb, label, *, num_points, block_size, stride, rng,
+          cover_all, feature_mode, min_points=32):
+    """``room_blocks``' dict (None without a block) and the chunks the
+    native pass emitted (``native.crop_chunks``; 0 on the NumPy path,
+    which float32 rooms take only without the library)."""
     rng = rng or np.random.RandomState(0)
     mins, maxs = xyz.min(0), xyz.max(0)
     span = np.maximum(maxs - mins, 1e-6)
-    out = {k: [] for k in ("points", "features", "label", "mask", "index")}
     xs = np.arange(mins[0], maxs[0] + 1e-6, stride)
     ys = np.arange(mins[1], maxs[1] + 1e-6, stride)
+    column = _columns(xyz, mins, stride, block_size)
+    rows, corners = [], []
     for x0 in xs:
+        members = column(x0)
         for y0 in ys:
-            sel = np.where(
-                (xyz[:, 0] >= x0) & (xyz[:, 0] < x0 + block_size)
-                & (xyz[:, 1] >= y0) & (xyz[:, 1] < y0 + block_size)
-            )[0]
+            sel = members(y0)
             if len(sel) < min_points:
                 continue
             if len(sel) >= num_points and not cover_all:
@@ -99,12 +110,62 @@ def room_blocks(
                 if len(tail) < num_points:
                     pad = rng.choice(sel, num_points - len(tail), replace=True)
                     chunks[-1] = np.concatenate([tail, pad])
-            for sel in chunks:
-                _emit_block(out, xyz, rgb, label, sel, x0, y0,
-                            block_size, mins, span, feature_mode)
-    if not out["points"]:
-        return None
-    return {k: np.stack(v) for k, v in out.items()}
+            rows += chunks
+            corners += [(x0, y0)] * len(chunks)
+    if not rows:
+        return None, 0
+    if xyz.dtype == np.float32 and native.available():
+        centers = np.array([(x0 + block_size / 2, y0 + block_size / 2)
+                            for x0, y0 in corners], np.float32)
+        return native.crop_chunks(xyz, rgb, label, mins, span, np.stack(rows),
+                                  centers, feature_mode != "rgb"), len(rows)
+    out = {k: [] for k in ("points", "features", "label", "mask", "index")}
+    for sel, (x0, y0) in zip(rows, corners):
+        _emit_block(out, xyz, rgb, label, sel, x0, y0,
+                    block_size, mins, span, feature_mode)
+    return {k: np.stack(v) for k, v in out.items()}, 0
+
+
+def _columns(xyz, mins, stride, block_size):
+    """``column(x0)(y0)``: the points of the window [x0, x0 + block_size)
+    x [y0, y0 + block_size), in ascending order, as ``np.where`` over the
+    whole room gives them.  The points are binned once into square cells
+    of side ``stride`` from ``mins``, and a window tests only the cells it
+    can touch, widened by one on each side, with the comparisons of a
+    whole-room scan: ``column(x0)`` makes the x test on the strip of cells
+    of its windows and sorts the strip by y cell, then each window makes
+    the y test on one run of the strip."""
+    x, y = xyz[:, 0], xyz[:, 1]
+    m0, m1 = float(mins[0]), float(mins[1])
+
+    def cells(v, m):
+        return np.floor((v.astype(np.float64) - m) / stride).astype(np.int64)
+
+    def reach(v0, m, n):          # the cells a window from v0 can touch
+        return (max(math.floor((v0 - m) / stride) - 1, 0),
+                min(math.floor((v0 + block_size - m) / stride) + 1, n - 1))
+
+    ix, iy = cells(x, m0), cells(y, m1)
+    nx, ny = int(ix.max()) + 1, int(iy.max()) + 1
+    by_x = np.argsort(ix, kind="stable")
+    col = np.searchsorted(ix[by_x], np.arange(nx + 1))
+
+    def column(x0):
+        a, b = reach(x0, m0, nx)
+        idx = by_x[col[a]:col[max(a, b + 1)]]
+        idx = idx[(x[idx] >= x0) & (x[idx] < x0 + block_size)]
+        idx = idx[np.argsort(iy[idx], kind="stable")]
+        ys, row = y[idx], np.searchsorted(iy[idx], np.arange(ny + 1))
+
+        def members(y0):
+            a, b = reach(y0, m1, ny)
+            run = slice(row[a], row[max(a, b + 1)])
+            return np.sort(
+                idx[run][(ys[run] >= y0) & (ys[run] < y0 + block_size)])
+
+        return members
+
+    return column
 
 
 def _emit_block(out, xyz, rgb, label, sel, x0, y0, block_size, mins, span,
@@ -192,12 +253,13 @@ def predict_scene_voting(
     the host included) and ``vote.scatter`` (adding each block's logits
     into the votes).  ``events``, when given, gains their seconds under
     ``crop_s``, ``forward_s`` and ``scatter_s``, ``chunks`` (the blocks
-    ``room_blocks`` emitted) and ``pad_chunks`` (the rows repeated to fill
+    ``room_blocks`` emitted), ``crop_native`` (those of them the native
+    pass emitted: all or 0) and ``pad_chunks`` (the rows repeated to fill
     the last batch).
     """
     ev = {"crop_s": 0.0, "forward_s": 0.0, "scatter_s": 0.0}
     with span("vote.crop", ev, "crop_s"):
-        blocks = room_blocks(
+        blocks, ev["crop_native"] = _crop(
             xyz, rgb,
             label if label is not None else np.zeros(len(xyz), np.int32),
             num_points=num_points, block_size=block_size, stride=stride,

@@ -3,7 +3,8 @@
 A copy of ``pointwise_tpu.native`` for the PyTorch package, with two
 changes: the shared library is built at first use into ``native/_build/``
 (ignored by git), never next to the source; and it also builds the streaming
-engine's schedule (``presort``, ``GridIndex.nested_schedule``).  Without a
+engine's schedule (``presort``, ``GridIndex.nested_schedule``) and emits the
+sliding-block crop's chunks (``crop_chunks``).  Without a
 compiler it falls back to a pure NumPy implementation (identical results,
 slower): this is host code, not a device path.
 """
@@ -82,6 +83,10 @@ def _load():
     lib.gh_sched_emit.argtypes = [u8p, i64p, ctypes.c_int32, i32p, i32p,
                                   i32p, i32p]
     lib.gh_sched_emit.restype = None
+    lib.gh_crop.argtypes = [f32p, f32p, i32p, f32p, f32p, i64p, f32p,
+                            ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                            ctypes.c_int, f32p, f32p, i32p, f32p, i32p]
+    lib.gh_crop.restype = None
     _lib = lib
     return _lib
 
@@ -263,3 +268,40 @@ def presort(points: np.ndarray, features: np.ndarray):
     lib.gh_presort(pts, fts, n, c, min(8, os.cpu_count() or 1), lo, hi,
                    order, pts_out, fts_out)
     return order, pts_out, fts_out, lo, hi
+
+
+def crop_chunks(xyz, rgb, label, mins, span, rows, centers, rgb_norm):
+    """``data.s3dis._emit_block`` for every chunk of a room in one threaded
+    native pass, its arrays already stacked: chunk k holds the room's points
+    ``rows[k]`` ((C, m) int64), Morton-sorted, centred on ``centers[k]``
+    ((C, 2) float32, the window's middle in x and y).  ``xyz`` (n, 3)
+    float32, ``rgb`` (n, 3), ``label`` (n,), ``mins`` and ``span`` the
+    room's (3,) float32; ``rgb_norm`` appends (xyz - mins) / span to the
+    colours.  Returns room_blocks' dict, the same bits as the NumPy steps.
+    Requires the library (``available()``)."""
+    rows = np.ascontiguousarray(rows, np.int64)
+    n = len(xyz)
+    if (xyz.shape != (n, 3) or rgb.shape != (n, 3) or label.shape != (n,)
+            or rows.ndim != 2 or centers.shape != (len(rows), 2)
+            or not rows.size or rows.min() < 0 or rows.max() >= n):
+        raise ValueError(
+            f"xyz {xyz.shape} and rgb {rgb.shape} must be (n, 3), label "
+            f"{label.shape} (n,), rows {rows.shape} (C, m) of indices below "
+            f"n and centers {centers.shape} (C, 2)")
+    chunks, m = rows.shape
+    out = dict(points=np.empty((chunks, m, 3), np.float32),
+               features=np.empty((chunks, m, 6 if rgb_norm else 3),
+                                 np.float32),
+               label=np.empty((chunks, m), np.int32),
+               mask=np.empty((chunks, m), np.float32),
+               index=np.empty((chunks, m), np.int32))
+    _load().gh_crop(
+        np.ascontiguousarray(xyz, np.float32),
+        np.ascontiguousarray(rgb, np.float32),
+        np.ascontiguousarray(label, np.int32),
+        np.ascontiguousarray(mins, np.float32),
+        np.ascontiguousarray(span, np.float32), rows,
+        np.ascontiguousarray(centers, np.float32), chunks, m, int(rgb_norm),
+        min(8, os.cpu_count() or 1), out["points"], out["features"],
+        out["label"], out["mask"], out["index"])
+    return out

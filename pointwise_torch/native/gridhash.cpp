@@ -18,6 +18,8 @@
 //               and gather, in linear time (the streaming engine's presort)
 //   gh_sched_mark / gh_sched_emit : one tile's nested candidate sets and
 //               their gather schedule, in one walk of the tile's cells
+//   gh_crop   : every chunk of a room's sliding-block crop, Morton-sorted,
+//               centred and featured, in one threaded pass
 //
 // Built by native/__init__.py (g++ -O3 -shared -fPIC -pthread).
 
@@ -371,6 +373,89 @@ void gh_sched_emit(uint8_t* depth, const int64_t* span, int32_t L,
       for (int l = 0; l < L; ++l) skips[l * n_in + r[L]] = (int32_t)r[l + 1];
     for (int k = 0; k < d; ++k) ++r[k];
   }
+}
+
+// The sliding-block crop's emission (data/s3dis.py ``_emit_block``) for
+// every chunk of a room at once.  Chunk k is the room's points
+// rows[k * m .. k * m + m) (m = num_points); per chunk: gh_morton's codes
+// over the chunk's own bounding box, a stable argsort of them (an LSD radix
+// sort of code << 32 | position over three 10-bit digits), and, at output
+// position i of the sorted point r:
+//   points[k, i]   = xyz[r] - (centers[k, 0], centers[k, 1], 0)
+//   features[k, i] = rgb[r], then (xyz[r] - mins) / span when rgb_norm
+//   label[k, i] = label_in[r], mask[k, i] = 1, index[k, i] = r.
+// The same float32 operations as the NumPy steps, so the same bits.
+// Chunks are independent: up to ``threads`` threads take contiguous runs
+// of them.  Requires 1 <= m < 2^32.
+void gh_crop(const float* xyz, const float* rgb, const int32_t* label_in,
+             const float* mins, const float* span,
+             const int64_t* rows, const float* centers,
+             int64_t chunks, int64_t m, int rgb_norm, int threads,
+             float* points,                     // out: (chunks, m, 3)
+             float* features,                   // out: (chunks, m, 6 or 3)
+             int32_t* label,                    // out: (chunks, m)
+             float* mask,                       // out: (chunks, m)
+             int32_t* index) {                  // out: (chunks, m)
+  const int nt = (int)std::max<int64_t>(1, std::min<int64_t>(threads, chunks));
+  const int64_t c = rgb_norm ? 6 : 3;
+  parallel_slices(nt, chunks, [&](int64_t b, int64_t e, int) {
+    std::vector<float> pts(3 * m);
+    std::vector<uint32_t> codes(m);
+    std::vector<uint64_t> keys(m), tmp(m);
+    std::vector<int64_t> count(kBuckets);
+    for (int64_t k = b; k < e; ++k) {
+      const int64_t* row = rows + k * m;
+      float lo[3], ext[3];
+      for (int a = 0; a < 3; ++a) lo[a] = ext[a] = xyz[3 * row[0] + a];
+      for (int64_t j = 0; j < m; ++j)
+        for (int a = 0; a < 3; ++a) {
+          const float v = xyz[3 * row[j] + a];
+          pts[3 * j + a] = v;
+          lo[a] = std::min(lo[a], v);
+          ext[a] = std::max(ext[a], v);
+        }
+      for (int a = 0; a < 3; ++a) ext[a] -= lo[a];
+      gh_morton(pts.data(), m, lo, ext, codes.data());
+      for (int64_t j = 0; j < m; ++j)
+        keys[j] = ((uint64_t)codes[j] << 32) | (uint64_t)j;
+      uint64_t* src = keys.data();
+      uint64_t* dst = tmp.data();
+      for (int d = 0; d < 3; ++d) {
+        const int shift = 32 + kDigitBits * d;
+        std::fill(count.begin(), count.end(), 0);
+        for (int64_t j = 0; j < m; ++j)
+          ++count[(src[j] >> shift) & (kBuckets - 1)];
+        int64_t run = 0;
+        for (int q = 0; q < kBuckets; ++q) {
+          const int64_t n_q = count[q];
+          count[q] = run;
+          run += n_q;
+        }
+        for (int64_t j = 0; j < m; ++j)
+          dst[count[(src[j] >> shift) & (kBuckets - 1)]++] = src[j];
+        std::swap(src, dst);
+      }
+      const float cx = centers[2 * k], cy = centers[2 * k + 1];
+      for (int64_t i = 0; i < m; ++i) {
+        const int64_t j = (int64_t)(src[i] & 0xFFFFFFFFu);
+        const int64_t r = row[j];
+        const float* p = &pts[3 * j];
+        float* o = points + 3 * (k * m + i);
+        o[0] = p[0] - cx;
+        o[1] = p[1] - cy;
+        o[2] = p[2] - 0.0f;
+        float* f = features + c * (k * m + i);
+        f[0] = rgb[3 * r];
+        f[1] = rgb[3 * r + 1];
+        f[2] = rgb[3 * r + 2];
+        if (rgb_norm)
+          for (int a = 0; a < 3; ++a) f[3 + a] = (p[a] - mins[a]) / span[a];
+        label[k * m + i] = label_in[r];
+        mask[k * m + i] = 1.0f;
+        index[k * m + i] = (int32_t)r;
+      }
+    }
+  });
 }
 
 }  // extern "C"

@@ -5,9 +5,11 @@ plain reference, on the CPU.
 convs in float32, labels a small procedural room through
 ``s3dis.predict_scene_voting`` and ``eval.block_predictor``;
 ``benchmark/reference/vote.py`` votes over the same chunks with the same
-seeded weights (``benchmark.weights.make``).  And the voting path's
-events and spans, and ``eval_segmentation`` unchanged by the predictor's
-move out of it.
+seeded weights (``benchmark.weights.make``).  The program's crop equals
+the frozen one (``benchmark/frozen/blocks.room_blocks``) array for array,
+with the native library and without it.  And the voting path's events
+and spans, and ``eval_segmentation`` unchanged by the predictor's move out
+of it.
 """
 
 import dataclasses
@@ -18,12 +20,13 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity
 
-from benchmark import weights
+from benchmark import cell, traffic, weights
 from benchmark.frozen import blocks as frozen_blocks
 from benchmark.frozen import synthetic
 from benchmark.reference import models as ref_models
 from benchmark.reference import vote as ref_vote
 from pointwise_torch import eval as port_eval
+from pointwise_torch import native
 from pointwise_torch.data import s3dis
 from pointwise_torch.models import PointwiseSegmenter
 from pointwise_torch.train import get_config
@@ -104,11 +107,136 @@ def test_events_count_the_chunks(stride):
         block_size=1.0, stride=stride, rng=np.random.RandomState(0),
         cover_all=True)
     assert set(ev) == {"crop_s", "forward_s", "scatter_s", "chunks",
-                       "pad_chunks"}
+                       "crop_native", "pad_chunks"}
     assert all(ev[k] > 0 for k in ("crop_s", "forward_s", "scatter_s"))
     assert ev["chunks"] == len(blocks["points"])
+    assert native.available() and ev["crop_native"] == ev["chunks"]
     assert ev["pad_chunks"] == -ev["chunks"] % VOTING["batch_size"]
     assert (ev["chunks"] + ev["pad_chunks"]) % VOTING["batch_size"] == 0
+
+
+def test_crop_native_is_zero_without_the_library(monkeypatch):
+    model, _ = _model()
+    xyz, rgb = _room(2)
+    ev = {}
+    monkeypatch.setattr(native, "_lib", False)
+    s3dis.predict_scene_voting(
+        port_eval.block_predictor(model, torch.device("cpu")), xyz, rgb,
+        stride=0.25, events=ev, **VOTING)
+    assert ev["chunks"] > 0 and ev["crop_native"] == 0
+
+
+def _library(monkeypatch, on):
+    """The native crop when ``on`` (asserting that it loaded), else the
+    NumPy path."""
+    if on:
+        assert native.available()
+    else:
+        monkeypatch.setattr(native, "_lib", False)
+
+
+def _same_crop(xyz, rgb, lab, seed, frozen=None, **kw):
+    """The program's crop, asserted equal to the frozen one (``frozen``
+    when given) array for array."""
+    a = s3dis.room_blocks(xyz, rgb, lab, rng=np.random.RandomState(seed),
+                          **kw)
+    b = frozen or frozen_blocks.room_blocks(
+        xyz, rgb, lab, rng=np.random.RandomState(seed), **kw)
+    assert set(a) == set(b) == {"points", "features", "label", "mask",
+                                "index"}
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        assert a[k].dtype == b[k].dtype, k
+    return a
+
+
+@pytest.fixture(scope="module")
+def full_room():
+    """One request of the voting cell: a 196,608-point room, turned and
+    moved as ``traffic.scan_request`` serves it, the crop's arguments at
+    the cell's 1 m windows and 0.25 m stride, and its frozen crop."""
+    bench = cell.load_benchmark()
+    c, centry = cell.find(bench, "s3dis_ctx.vote_rooms_200k")
+    cfg = cell.load_json(cell.ROOT, centry["file"])
+    mix = traffic.load(c["traffic"])
+    xyz, _ = traffic.scan_request(
+        cfg, mix, traffic.base_scenes(cfg, mix, 2**31 + 5), 2**31 + 5, 0)
+    rgb = np.random.RandomState(3).uniform(0, 1, xyz.shape).astype(
+        np.float32)
+    lab = np.random.RandomState(4).randint(0, 13, len(xyz)).astype(np.int32)
+    kw = dict(num_points=cfg["num_points"], block_size=cfg["block_size"],
+              stride=mix["stride"], cover_all=True)
+    frozen = frozen_blocks.room_blocks(xyz, rgb, lab,
+                                       rng=np.random.RandomState(0), **kw)
+    return xyz, rgb, lab, kw, frozen
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["native", "numpy"])
+def test_crop_of_a_full_room_is_the_frozen_one(monkeypatch, full_room, on):
+    xyz, rgb, lab, kw, frozen = full_room
+    assert len(xyz) == 196_608 and kw["stride"] == 0.25
+    _library(monkeypatch, on)
+    blocks = _same_crop(xyz, rgb, lab, 0, frozen, **kw)
+    assert len(blocks["points"]) > 1000
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("cover_all", [True, False])
+@pytest.mark.parametrize("feature_mode", ["rgb_norm", "rgb"])
+@pytest.mark.parametrize("seed", [0, 7])
+def test_crop_is_the_frozen_one(monkeypatch, on, cover_all, feature_mode,
+                                seed):
+    xyz, rgb, lab = synthetic.segmentation_scene(
+        5, num_objects=3, points_per_obj=300, room=2.5)
+    _library(monkeypatch, on)
+    blocks = _same_crop(xyz, rgb, lab, seed, num_points=128, block_size=1.0,
+                        stride=0.25, cover_all=cover_all,
+                        feature_mode=feature_mode)
+    assert blocks["features"].shape[2] == (6 if feature_mode == "rgb_norm"
+                                           else 3)
+
+
+@pytest.mark.parametrize("on", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("cover_all", [True, False])
+def test_crop_on_window_edges(monkeypatch, on, cover_all):
+    """Points on the windows' edges (the room's minimum plus multiples of
+    the stride, exact in float32) and on their float32 neighbours, a dense
+    corner and sparse windows under ``min_points``."""
+    rng = np.random.RandomState(11)
+    lo = np.float32([-1.25, 0.5, 0.0])
+    edges = lo[:2] + np.float32(0.25) * np.arange(13, dtype=np.float32)[
+        :, None]
+    grid = np.stack([edges[:, 0], np.nextafter(edges[:, 0], np.float32(-9)),
+                     np.nextafter(edges[:, 0], np.float32(9))], 1).ravel()
+    gy = np.stack([edges[:, 1], np.nextafter(edges[:, 1], np.float32(-9)),
+                   np.nextafter(edges[:, 1], np.float32(9))], 1).ravel()
+    n = 3000
+    xyz = np.empty((n, 3), np.float32)
+    xyz[:, 0] = rng.choice(grid[grid >= lo[0]], n)
+    xyz[:, 1] = rng.choice(gy[gy >= lo[1]], n)
+    xyz[:, 2] = rng.uniform(0, 1, n)
+    xyz[: n // 2, :2] = lo[:2] + rng.uniform(0, 0.6, (n // 2, 2))
+    xyz[0] = lo                              # the room's minimum
+    sparse = np.all(xyz[:, :2] >= lo[:2] + 2.0, axis=1)
+    xyz = xyz[~sparse | (rng.uniform(size=n) < 0.05)]
+    rgb = rng.uniform(0, 1, xyz.shape).astype(np.float32)
+    lab = rng.randint(0, 5, len(xyz)).astype(np.int32)
+    assert xyz.min(0)[0] == lo[0] and xyz.min(0)[1] == lo[1]
+    on_edge = np.isin(xyz[:, 0], edges[:, 0]) | np.isin(xyz[:, 1],
+                                                        edges[:, 1])
+    assert on_edge.sum() > 100
+    _library(monkeypatch, on)
+    kw = dict(num_points=64, block_size=1.0, stride=0.25,
+              cover_all=cover_all)
+    blocks = _same_crop(xyz, rgb, lab, 3, **kw)
+    # some windows hold fewer than min_points (32) points and emit nothing
+    xs = np.arange(lo[0], xyz[:, 0].max() + 1e-6, 0.25)
+    ys = np.arange(lo[1], xyz[:, 1].max() + 1e-6, 0.25)
+    held = [np.sum((xyz[:, 0] >= x0) & (xyz[:, 0] < x0 + 1.0)
+                   & (xyz[:, 1] >= y0) & (xyz[:, 1] < y0 + 1.0))
+            for x0 in xs for y0 in ys]
+    assert min(held) < 32 <= max(held)
+    assert len(blocks["points"]) >= sum(h >= 32 for h in held)
 
 
 def _ranges(fn):
